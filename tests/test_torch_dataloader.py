@@ -1,0 +1,148 @@
+"""The whole slice: pfv_torch.decode_video_yuv / _rgba / _rgb / _checksums
+with device="cpu" (the kernels' plain versions) against the JAX package's
+units path (forced as tests/test_units_kernel.py forces it) and against the
+scalar reference decoder `runtime.ref_decode`. All comparisons are exact.
+
+Clips: those of test_units_kernel.py (256x128 with an I-frame mid-stream,
+128x96 with one keyframe, q0 with multi-chunk tiles), plus 136x90, whose
+width is not a multiple of 128: only the port and ref_decode take it."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import pfv_torch
+from pfv_torch import dataloader as tdl
+from pfv_tpu import dataloader as jdl
+from pfv_tpu import runtime
+from pfv_tpu.encoding import encode_video
+from pfv_tpu.utils.synth import synth_yuv_frame
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CLIPS = {
+    # name: (w, h, frames, t0, quality, keyframes, JAX units path takes it)
+    "256x128_gop4": (256, 128, 7, 0, 2, 4, True),
+    "128x96_one_key": (128, 96, 6, 3, 4, 100, True),
+    "256x128_q0": (256, 128, 4, 7, 0, 4, True),
+    "136x90": (136, 90, 5, 1, 3, 3, False),
+}
+
+
+def _jax_units(data, want):
+    """The JAX package's decode through its units path (units + seq kernel,
+    interpret mode on the CPU)."""
+    env = {"PFV_STEP": "1", "PFV_SEQ": "1", "PFV_UNITS": "1",
+           "PFV_GOP_CONCURRENT": "0", "PFV_LADDER": "plain"}
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in env.items():
+            mp.setenv(k, v)
+        jdl._make_decoder.cache_clear()
+        try:
+            info, _ = jdl._demux_packed_to_device(data, 0)
+            assert info.get("units", 0) > 0, "units path not taken"
+            return [np.asarray(p) for p in want(data)]
+        finally:
+            jdl._make_decoder.cache_clear()
+
+
+@pytest.fixture(scope="module")
+def clips():
+    out = {}
+    for name, (w, h, f, t0, q, key, jax_units) in CLIPS.items():
+        ys, us, vs = map(np.stack, zip(*[synth_yuv_frame(t + t0, w, h)
+                                         for t in range(f)]))
+        data = encode_video(ys, us, vs, 30, quality=q, keyframes=key)
+        out[name] = dict(data=data, ref=runtime.ref_decode(data)[1:4],
+                         jax_units=jax_units)
+    return out
+
+
+@pytest.mark.parametrize("name", list(CLIPS))
+def test_yuv_matches_jax_and_reference(clips, name):
+    c = clips[name]
+    got = [p.numpy() for p in pfv_torch.decode_video_yuv(c["data"], device="cpu")]
+    for p, r in zip(got, c["ref"]):
+        assert p.shape == r.shape and np.array_equal(p, r)
+    if c["jax_units"]:
+        want = _jax_units(c["data"], jdl.decode_video_yuv)
+        for p, r in zip(got, want):
+            assert np.array_equal(p, r)
+
+
+def test_q0_clip_has_multichunk_tiles(clips):
+    _, _, coff, _ = tdl.demux_host(clips["256x128_q0"]["data"])[1:]
+    assert int(np.diff(coff).max()) > 1
+
+
+@pytest.mark.parametrize("name", list(CLIPS))
+def test_rgb_and_checksums_match_reference(clips, name):
+    c = clips[name]
+    ry, ru, rv = c["ref"]
+    rgba = pfv_torch.decode_video_rgba(c["data"], device="cpu")
+    assert rgba.dtype == torch.uint32 and tuple(rgba.shape) == ry.shape
+    chans = pfv_torch.rgba_view(rgba).numpy()
+    rgb = pfv_torch.decode_video_rgb(c["data"], device="cpu").numpy()
+    up = [np.repeat(np.repeat(p, 2, axis=1), 2, axis=2)[:, :ry.shape[1], :ry.shape[2]]
+          for p in (ru, rv)]
+    want = jdl.yuv_to_rgb(ry, *up)  # the JAX package's XLA colour path
+    assert np.array_equal(chans[..., :3], np.asarray(want))
+    assert (chans[..., 3] == 255).all() and np.array_equal(rgb, chans[..., :3])
+    sums = pfv_torch.decode_video_checksums(c["data"], device="cpu")
+    assert np.array_equal(sums.numpy().astype(np.uint32),
+                          jdl.plane_checksums(ry, ru, rv))
+
+
+def test_rgba_rgb_checksums_match_jax_units_path(clips):
+    data = clips["256x128_gop4"]["data"]
+    for port, jax_fn in ((pfv_torch.decode_video_rgba, jdl.decode_video_rgba),
+                         (pfv_torch.decode_video_rgb, jdl.decode_video_rgb),
+                         (pfv_torch.decode_video_checksums,
+                          jdl.decode_video_checksums)):
+        (want,) = _jax_units(data, lambda d, fn=jax_fn: [fn(d)])
+        got = port(data, device="cpu")
+        if got.dtype == torch.uint32:
+            got = got.view(torch.int32).numpy().view(np.uint32)
+        else:
+            got = got.numpy().astype(want.dtype)
+        assert np.array_equal(got, want)
+
+
+def test_gates_raise_by_name():
+    g = tdl.geometry(4112, 128)  # 4096 is the widest that fits
+    ft, qi = np.array([1, 2], np.uint8), np.array([[0, 1, 1], [2, 3, 3]], np.uint8)
+    with pytest.raises(ValueError, match="2\\*scp <= 1024"):
+        tdl.check_gates(g, ft, qi, 4)
+    g = tdl.geometry(128, 96)
+    tdl.check_gates(g, ft, qi, 4)
+    with pytest.raises(ValueError, match="first frame is intra"):
+        tdl.check_gates(g, ft[::-1], qi, 4)
+    with pytest.raises(ValueError, match="uniform q indices"):
+        tdl.check_gates(g, ft, np.array([[0, 1, 2], [2, 3, 3]], np.uint8), 4)
+    with pytest.raises(ValueError, match="uniform q indices"):
+        tdl.check_gates(g, np.array([1, 2, 2], np.uint8),
+                        np.array([[0, 1, 1], [2, 3, 3], [3, 3, 3]], np.uint8), 4)
+    with pytest.raises(ValueError, match="out of range"):
+        tdl.check_gates(g, ft, qi, 3)
+
+
+def test_port_never_imports_jax(clips, tmp_path):
+    path = tmp_path / "clip.pfv"
+    path.write_bytes(clips["136x90"]["data"])
+    code = (
+        "import sys, pfv_torch\n"
+        f"y, u, v = pfv_torch.decode_video_yuv(open({str(path)!r}, 'rb').read(),"
+        " device='cpu')\n"
+        "assert y.shape[0] == 5\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
