@@ -14,8 +14,8 @@
 //      into a 64 x 128 int32 shared-memory accumulator with atomicAdd,
 //      which is exact in any order (a coefficient may span several units);
 //   2. dequantizes with qmul[I/P][luma/chroma][r] in wrapping int32 (Q1);
-//   3. runs the integer 8x8 iDCT, columns then rows, one thread per lane,
-//      and clamps (m >> 8) + 128 to 0..255;
+//   3. runs the integer 8x8 iDCT (idct8.cuh), columns then rows, one
+//      thread per lane, and clamps (m >> 8) + 128 to 0..255;
 //   4. merges lane l = 4*gc + 2*sr + sc, pixel (i, j) to stripe row
 //      8*sr + i, column 16*gc + 8*sc + j (lanes past the canvas drop out);
 //   5. for P frames predicts pred[r][c] = prev[16*s + r + dy][c + dx] with
@@ -36,43 +36,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "idct8.cuh"
+
 namespace {
 
 constexpr int kLanes = 128;             // coefficient lanes per CTA
 constexpr int kCols = kLanes * 4;       // canvas columns per CTA
 constexpr int kThreads = kLanes;        // one thread per lane in the iDCT
 
-typedef uint32_t u32;
-
-// Rust `x / (1 << k)` on int32: truncating, via bias + arithmetic shift.
-__device__ __forceinline__ u32 tdiv(u32 x, int k) {
-  const u32 bias = (u32)(((int)x >> 31) & ((1 << k) - 1));
-  return (u32)((int)(x + bias) >> k);
-}
-
-// Inverse 1-D transform of p[0], p[s], ..., p[7s] in place (dct.rs idct).
-__device__ __forceinline__ void idct8(u32* p, int s) {
-  const u32 c0 = p[0], d4 = p[s], c2 = p[2 * s], d6 = p[3 * s];
-  const u32 c1 = p[4 * s], d5 = p[5 * s], c3 = p[6 * s], d7 = p[7 * s];
-  const u32 c4 = d4, c5 = d5 + d6, c7 = d5 - d6, c6 = d7;
-  const u32 b4 = c4 + c5, b5 = c4 - c5, b6 = c6 + c7, b7 = c6 - c7;
-  const u32 b0 = c0 + c1, b1 = c0 - c1;
-  const u32 b2 = c2 + tdiv(c2, 2) + tdiv(c3, 1);
-  const u32 b3 = tdiv(c2, 1) - c3 - tdiv(c3, 2);
-  const u32 a4 = tdiv(b7, 2) + b4 + tdiv(b4, 2) - tdiv(b4, 4);
-  const u32 a7 = tdiv(b4, 2) - b7 - tdiv(b7, 2) + tdiv(b7, 4);
-  const u32 a5 = b5 - b6 + tdiv(b6, 2) + tdiv(b6, 4);
-  const u32 a6 = b6 + b5 - tdiv(b5, 2) - tdiv(b5, 4);
-  const u32 a0 = b0 + b2, a1 = b1 + b3, a2 = b1 - b3, a3 = b0 - b2;
-  p[0] = a0 + a4;
-  p[s] = a1 + a5;
-  p[2 * s] = a2 + a6;
-  p[3 * s] = a3 + a7;
-  p[4 * s] = a3 - a7;
-  p[5 * s] = a2 - a6;
-  p[6 * s] = a1 - a5;
-  p[7 * s] = a0 - a4;
-}
+using pfv::u32;
 
 __global__ void __launch_bounds__(kThreads)
 step_frame_kernel(const u32* __restrict__ units, const int* __restrict__ coff,
@@ -116,21 +88,16 @@ step_frame_kernel(const u32* __restrict__ units, const int* __restrict__ coff,
     if (gc0 + (l >> 2) < gcw) {
       const int* q = qmul + ((intra ? 0 : 2) + (s < gly ? 0 : 1)) * 64;
       u32 v[64];
+      uint8_t px[64];
 #pragma unroll
       for (int r = 0; r < 64; r++) v[r] = (u32)acc[r][l] * (u32)q[r];
-#pragma unroll
-      for (int j = 0; j < 8; j++) idct8(v + j, 8);
-#pragma unroll
-      for (int i = 0; i < 8; i++) idct8(v + 8 * i, 1);
+      pfv::idct8x8_clamp(v, px);
       const int row0 = 8 * ((l >> 1) & 1);
       const int col0 = 16 * (l >> 2) + 8 * (l & 1);
 #pragma unroll
       for (int i = 0; i < 8; i++) {
 #pragma unroll
-        for (int j = 0; j < 8; j++) {
-          const int px = ((int)v[8 * i + j] >> 8) + 128;
-          res[row0 + i][col0 + j] = (uint8_t)min(max(px, 0), 255);
-        }
+        for (int j = 0; j < 8; j++) res[row0 + i][col0 + j] = px[8 * i + j];
       }
     }
     __syncthreads();

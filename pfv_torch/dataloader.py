@@ -7,9 +7,14 @@ Counterpart of the units path of pfv_tpu/dataloader.py:
     -> YUV views | K2 -> (F, H, W) uint32 RGBA
 
 The canvas fuses the three planes: Y at rows [0, ly0), U and V side by side
-below it, V starting at column lcw. Every public entry point takes an
-explicit `device` ("cuda" by default) and leaves its result there; a CPU
-device runs the kernels' plain PyTorch versions.
+below it, V starting at column lcw. A stream that fails one of K1's gates
+(`failed_gate`) decodes instead frame by frame, through the streaming
+decoder's step (K5 + K7 per plane, dec.FrameDecoder), into the same
+canvases; `choose_route` records which path a stream takes and why, as the
+JAX package falls back from its units path to its per-block paths. Every
+public entry point takes an explicit `device` ("cuda" by default) and
+leaves its result there; a CPU device runs the kernels' plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -20,53 +25,13 @@ import numpy as np
 import torch
 
 from pfv_torch import runtime
-from pfv_torch.frame import pad16
+from pfv_torch.dec import FrameDecoder, frame_packets
+from pfv_torch.frame import Geometry, geometry, slice_yuv
 from pfv_torch.kernels.rgba import canvas_rgba
 from pfv_torch.kernels.step import lanes_per_stripe, step_frames
 from pfv_torch.ops.quant import DCT_SCALE_FACTOR, INV_ZIGZAG_TABLE
 
 UNITS_CHUNK = 128  # units per chunk of the tile demux
-
-
-class Geometry(NamedTuple):
-    """Frame and fused-canvas geometry of one stream."""
-
-    width: int
-    height: int
-    ly0: int  # padded luma rows = first chroma canvas row
-    lyw: int  # padded luma width
-    lc0: int  # padded chroma rows
-    lcw: int  # padded chroma width = first V canvas column
-    cw: int   # canvas width
-    chh: int  # canvas height
-    gly: int  # luma stripes (16 rows each)
-
-    @property
-    def gch(self) -> int:
-        return self.chh // 16
-
-    @property
-    def gcw(self) -> int:
-        return self.cw // 16
-
-    @property
-    def yb(self) -> int:
-        return (self.ly0 // 16) * (self.lyw // 16)
-
-    @property
-    def cb(self) -> int:
-        return (self.lc0 // 16) * (self.lcw // 16)
-
-    @property
-    def nb(self) -> int:
-        return self.yb + 2 * self.cb
-
-
-def geometry(width: int, height: int) -> Geometry:
-    ly0, lyw = pad16(height), pad16(width)
-    lc0, lcw = pad16(height // 2), pad16(width // 2)
-    return Geometry(width, height, ly0, lyw, lc0, lcw,
-                    cw=max(lyw, 2 * lcw), chh=ly0 + lc0, gly=ly0 // 16)
 
 
 def tile_tables(g: Geometry):
@@ -84,39 +49,66 @@ def tile_tables(g: Geometry):
     return stripe, lane, r_of_zz, g.gch
 
 
-def check_gates(g: Geometry, ftype: np.ndarray, qidx: np.ndarray,
-                n_qtables: int) -> None:
-    """Raise ValueError unless the stream can take this decode path: the
-    u16 unit index fits (2*scp <= 1024), the first frame is intra, and the
-    q-table indices are uniform per frame type with U == V."""
+def failed_gate(g: Geometry, ftype=None, qidx=None, n_qtables: int = 0):
+    """The name of the first of K1's gates the stream fails, or None: the
+    u16 unit index fits (2*scp <= 1024; the only gate without ftype and
+    qidx, checked before the tile demux), the first frame is intra, and the
+    q-table indices are uniform per frame type with U == V. Raises
+    ValueError for a q-table index the header does not have."""
     if lanes_per_stripe(g.cw) > 1024:
-        raise ValueError(f"gate '2*scp <= 1024' failed: a {g.width}-wide "
-                         "frame needs more than 1024 lanes per stripe")
+        return "2*scp <= 1024"
+    if ftype is None:
+        return None
     ftype = np.asarray(ftype).reshape(-1)
     qidx = np.asarray(qidx).reshape(-1, 3)
-    if ftype.size == 0 or ftype[0] != 1:
-        raise ValueError("gate 'first frame is intra' failed")
     if (qidx >= n_qtables).any():
         raise ValueError("corrupt stream: q-table index out of range")
+    if ftype.size == 0 or ftype[0] != 1:
+        return "first frame is intra"
     uniform = (qidx[:, 1] == qidx[:, 2]).all() and all(
         (rows == rows[:1]).all() for rows in (qidx[ftype == t] for t in (1, 2)))
     if not uniform:
-        raise ValueError("gate 'uniform q indices per frame type, U == V' "
-                         "failed")
+        return "uniform q indices per frame type, U == V"
+    return None
+
+
+class Route(NamedTuple):
+    """How a stream decodes: `gate` None -> the units path (tile demux +
+    K1), `host` holding `demux_host`'s output; else the per-frame path
+    (K5 + K7), `gate` naming the K1 gate the stream failed."""
+
+    g: Geometry
+    gate: str | None
+    host: tuple | None
+
+
+def choose_route(data: bytes, num_threads: int = 0) -> Route:
+    """Run the tile demux if the geometry allows it, then K1's gates."""
+    hdr, _ = runtime.parse_header(data)
+    g = geometry(hdr["width"], hdr["height"])
+    gate = failed_gate(g)
+    if gate is not None:
+        return Route(g, gate, None)
+    info, units, coff, bh, ftype, qidx = runtime.demux_file_sparse_tiles(
+        data, tile_tables(g), chunk=UNITS_CHUNK, num_threads=num_threads)
+    gate = failed_gate(g, ftype, qidx, info["qtables"].shape[0])
+    if gate is not None:
+        return Route(g, gate, None)
+    meta = np.concatenate([bh.reshape(-1), ftype.astype(np.uint16),
+                           qidx.reshape(-1).astype(np.uint16)])
+    return Route(g, None, (info, g, units, coff, meta))
 
 
 def demux_host(data: bytes, num_threads: int = 0):
     """Parse and entropy-decode `data` on the host into the tile layout:
     (info, geometry, units (NC, 128) u32, coff (F*gch + 1,) i32,
-    meta (F*nb + 4F,) u16 = [block headers | ftype | qidx])."""
-    hdr, _ = runtime.parse_header(data)
-    g = geometry(hdr["width"], hdr["height"])
-    info, units, coff, bh, ftype, qidx = runtime.demux_file_sparse_tiles(
-        data, tile_tables(g), chunk=UNITS_CHUNK, num_threads=num_threads)
-    check_gates(g, ftype, qidx, info["qtables"].shape[0])
-    meta = np.concatenate([bh.reshape(-1), ftype.astype(np.uint16),
-                           qidx.reshape(-1).astype(np.uint16)])
-    return info, g, units, coff, meta
+    meta (F*nb + 4F,) u16 = [block headers | ftype | qidx]). Raises
+    ValueError, naming the gate, for a stream K1 does not take."""
+    route = choose_route(data, num_threads)
+    if route.gate is not None:
+        raise ValueError(f"gate '{route.gate}' failed for a "
+                         f"{route.g.width}x{route.g.height} stream")
+    return route.host
 
 
 def unpack_meta(meta: torch.Tensor, nb: int):
@@ -185,18 +177,34 @@ def upload(host, device="cuda"):
     return g, (units_t, coff_t, dy, dx, hcm, ftype.contiguous(), qmul)
 
 
+def decode_frames(data: bytes, device="cuda"):
+    """Decode a whole stream frame by frame, each through K5 + K7 per plane
+    (dec.FrameDecoder), -> (geometry, (F, chh, cw) u8 canvases) in the
+    layout K1 writes, zeros outside the planes. Takes every stream the
+    format allows: any q-table index per frame and plane, any first packet
+    (the framebuffer starts at Y 0, U and V 128), any width, any motion
+    vector that keeps its window in the plane."""
+    info, _ = runtime.parse_header(data)
+    g = geometry(info["width"], info["height"])
+    packets = frame_packets(data)
+    frames = FrameDecoder(g, info["qtables"], device)
+    canvases = torch.zeros((len(packets), g.chh, g.cw), dtype=torch.uint8,
+                           device=frames.device)
+    prev = frames.initial_canvas()
+    for (ptype, payload), out in zip(packets, canvases):
+        frames.decode(ptype, payload, out, prev)
+        prev = out
+    return g, canvases
+
+
 def decode_canvases(data: bytes, device="cuda", num_threads: int = 0):
-    """Decode a whole stream -> (geometry, (F, chh, cw) u8 canvases)."""
-    g, args = upload(demux_host(data, num_threads), device)
+    """Decode a whole stream -> (geometry, (F, chh, cw) u8 canvases): by
+    the units path (K1) where `choose_route` allows, else `decode_frames`."""
+    route = choose_route(data, num_threads)
+    if route.gate is not None:
+        return decode_frames(data, device)
+    g, args = upload(route.host, device)
     return g, step_frames(*args, g.chh, g.cw, g.gly)
-
-
-def slice_yuv(g: Geometry, canvases):
-    """Views of the unpadded (F, H, W) Y and (F, H/2, W/2) U, V planes."""
-    h, w = g.height, g.width
-    rows = slice(g.ly0, g.ly0 + h // 2)
-    return (canvases[:, :h, :w], canvases[:, rows, :w // 2],
-            canvases[:, rows, g.lcw:g.lcw + w // 2])
 
 
 def decode_video_yuv(data: bytes, device="cuda", num_threads: int = 0):

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels of `pfv_torch/csrc` and bind them.
 
-`nvcc` compiles every `csrc/*.cu` for sm_90a into one shared library with a
-plain C interface, at first use and again whenever a source is newer than
-the library; `ctypes` binds it. The library lives in `pfv_torch/build/`,
+`nvcc` compiles every `csrc/*.cu` for sm_90a, one process per source, all
+started together, and links the objects into one shared library with a plain
+C interface, at first use and again whenever a source or header is newer
+than the library; `ctypes` binds it. The library lives in `pfv_torch/build/`,
 which git ignores. Nothing here runs at import time: a machine without
 `nvcc` or a card can import every module of the package.
 """
@@ -23,7 +24,7 @@ SO_PATH = os.path.join(BUILD_DIR, "libpfv_torch_kernels.so")
 # -fmad=false: K2's float math must not be contracted into FMAs (exactness);
 # -Xptxas -v: the log reports each kernel's registers and shared memory
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -39,29 +40,36 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; wait for all; raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(c)} failed (exit {p.returncode}):\n{err}")
+    return "".join(out + err for out, err in outs)
+
+
 def build() -> str:
     """Compile the kernels into SO_PATH; returns nvcc's log."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, SO_PATH)  # atomic: concurrent builders never see half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in _sources()]
+        log = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s]
+                    for s, o in zip(_sources(), objs)])
+        so = os.path.join(tmp, "lib.so")
+        log += _run([[_nvcc(), "-shared", "-o", so, *objs]])
+        os.replace(so, SO_PATH)  # atomic: another process never loads half a file
+    return log
 
 
 def _stale() -> bool:
     if not os.path.exists(SO_PATH):
         return True
     built = os.path.getmtime(SO_PATH)
-    return any(os.path.getmtime(s) > built for s in _sources())
+    deps = glob.glob(os.path.join(CSRC_DIR, "*.cu*"))
+    return any(os.path.getmtime(s) > built for s in deps)
 
 
 def lib() -> ctypes.CDLL:
@@ -77,5 +85,9 @@ def lib() -> ctypes.CDLL:
             so.pfv_step_frame.restype = i
             so.pfv_canvas_rgba.argtypes = [p, p] + [i] * 7 + [p]
             so.pfv_canvas_rgba.restype = i
+            so.pfv_idct_blocks.argtypes = [p, p, p, i, p]
+            so.pfv_idct_blocks.restype = i
+            so.pfv_mc_reconstruct.argtypes = [p, p, i, i, i] + [p] * 5 + [i, p, i, i, p]
+            so.pfv_mc_reconstruct.restype = i
             _lib = so
         return _lib

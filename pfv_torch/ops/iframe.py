@@ -1,0 +1,37 @@
+"""I-frame block decode (counterpart of pfv_tpu/ops/iframe.py, decode half).
+
+Coefficients are (N, 4, 64) int16: N macroblocks in raster order, 4
+subblocks [TL, TR, BL, BR], 64 zigzag-order coefficients, i.e. the
+bitstream's 256 coefficients per block.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pfv_torch.ops.blocks import subblocks_to_blocks
+from pfv_torch.ops.dct import FP_BITS, idct8_dim
+from pfv_torch.ops.quant import dequantize
+
+
+def decode_blocks_best(coeffs: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
+    """`decode_blocks` through kernel K5 (kernels/idct.py): the kernel on a
+    CUDA tensor, the plain version on a CPU one."""
+    from pfv_torch.kernels.idct import decode_blocks as k5
+
+    return k5(coeffs, q_table)
+
+
+def decode_blocks(coeffs: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
+    """Intra-decode (N, 4, 64) int16 coeffs -> (N, 16, 16) uint8 macroblocks."""
+    return decode_blocks_i32(coeffs, q_table).to(torch.uint8)
+
+
+def decode_blocks_i32(coeffs: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
+    """decode_blocks keeping the (0..255) pixels in int32: per subblock
+    dequantize, 2-D inverse DCT (columns, then rows), (x >> 8) + 128
+    clamped to 0..255."""
+    n = coeffs.shape[0]
+    m = dequantize(coeffs, q_table).view(n, 4, 8, 8)
+    m = idct8_dim(idct8_dim(m, 2), 3)
+    return subblocks_to_blocks(torch.clamp((m >> FP_BITS) + 128, 0, 255))

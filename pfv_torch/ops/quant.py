@@ -1,4 +1,4 @@
-"""Dequantization tables of PFV v2.1.1 (counterpart of pfv_tpu/ops/quant.py).
+"""Dequantization of PFV v2.1.1 (counterpart of pfv_tpu/ops/quant.py).
 
 Dequantize indexes the scale factor and the q-table by the zigzag slot, not
 the row-major position (quirk Q1, FORMAT.md); the decode path folds both into
@@ -8,6 +8,7 @@ per-row multipliers with INV_ZIGZAG_TABLE.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # 24.8 fixed-point scale factors applied at both encode and decode.
 DCT_SCALE_FACTOR = np.array(
@@ -45,3 +46,17 @@ INV_ZIGZAG_TABLE = np.array(
     ],
     dtype=np.int32,
 )
+
+
+def dequantize(qm: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
+    """Dequantize zigzag coefficients (..., 64) i16 -> row-major (..., 64) i32.
+
+    out[..., i] = qm[iz] * SCALE[iz] * q[iz], iz = INV_ZIGZAG_TABLE[i]: SCALE
+    and q indexed by the zigzag slot (quirk Q1). q_table broadcasts against
+    qm ((64,) for one plane, (N, 1, 64) per block). The products wrap in
+    int32, as the reference's release build does.
+    """
+    iz = torch.from_numpy(INV_ZIGZAG_TABLE).long().to(qm.device)
+    scale = torch.from_numpy(DCT_SCALE_FACTOR).to(qm.device)[iz]
+    val = qm[..., iz].to(torch.int32) * scale
+    return val * torch.broadcast_to(q_table, qm.shape)[..., iz].to(torch.int32)

@@ -33,5 +33,13 @@ _rt = _load()
 parse_header = _rt.parse_header
 demux_file_sparse_tiles = _rt.demux_file_sparse_tiles
 ref_decode = _rt.ref_decode
+decode_iframe_payload = _rt.decode_iframe_payload
+decode_pframe_payload = _rt.decode_pframe_payload
+encode_iframe_payload = _rt.encode_iframe_payload
+encode_pframe_payload = _rt.encode_pframe_payload
+validate_motion = _rt.validate_motion
 
-__all__ = ["parse_header", "demux_file_sparse_tiles", "ref_decode"]
+__all__ = ["parse_header", "demux_file_sparse_tiles", "ref_decode",
+           "decode_iframe_payload", "decode_pframe_payload",
+           "encode_iframe_payload", "encode_pframe_payload",
+           "validate_motion"]

@@ -1,5 +1,6 @@
 """Tests that need a CUDA card: each hand-written kernel against its plain
-PyTorch version on the card, and the decode against the scalar reference.
+PyTorch version on the card, and the decode (whole-clip, its per-frame
+fallback, the streaming Decoder) against the scalar reference.
 They skip without a card. They need no JAX; where it is not installed,
 skip tests/conftest.py (which imports it):
 
@@ -8,6 +9,7 @@ skip tests/conftest.py (which imports it):
 
 from __future__ import annotations
 
+import io
 import os
 
 import numpy as np
@@ -15,9 +17,13 @@ import pytest
 import torch
 
 from pfv_torch import dataloader as tdl
-from pfv_torch import runtime
+from pfv_torch import runtime, synth
+from pfv_torch.dec import Decoder
+from pfv_torch.kernels.idct import decode_blocks, decode_blocks_plain
+from pfv_torch.kernels.mc import mc_reconstruct, mc_reconstruct_plain
 from pfv_torch.kernels.rgba import canvas_rgba, canvas_rgba_plain
 from pfv_torch.kernels.step import step_frames, step_frames_plain
+from pfv_torch.ops.blocks import block_origins
 
 pytestmark = pytest.mark.cuda
 
@@ -65,3 +71,80 @@ def test_kernels_raise_on_mixed_devices(cuda):
     g, args = tdl.upload(tdl.demux_host(data), cuda)
     with pytest.raises(ValueError):
         step_frames(args[0], args[1].cpu(), *args[2:], g.chh, g.cw, g.gly)
+
+
+@pytest.mark.parametrize("n,lim,qmax", [(1, 800, 60), (300, 800, 60),
+                                        (8160, 800, 60), (64, 16000, 65536)])
+def test_idct_kernel_matches_plain(cuda, n, lim, qmax):
+    rng = np.random.default_rng(n + lim)
+    coeffs = rng.integers(-lim, lim, size=(n, 4, 64))
+    coeffs[rng.random(coeffs.shape) < 0.7] = 0
+    coeffs = torch.from_numpy(coeffs.astype(np.int16)).to(cuda)
+    q = torch.from_numpy(rng.integers(1, qmax, size=64).astype(np.int32)).to(cuda)
+    before = decode_blocks.launches
+    got = decode_blocks(coeffs, q)
+    assert decode_blocks.launches - before == 1
+    assert torch.equal(got, decode_blocks_plain(coeffs, q))
+
+
+@pytest.mark.parametrize("intra", [False, True])
+def test_mc_kernel_matches_plain_into_a_canvas_view(cuda, intra):
+    h, w = 96, 160
+    rng = np.random.default_rng(7)
+    by, bx = (torch.from_numpy(o).to(cuda) for o in block_origins(h, w))
+    n = by.shape[0]
+    canvas = torch.from_numpy(rng.integers(0, 256, size=(2, h + 16, w + 32),
+                                           dtype=np.uint8)).to(cuda)
+    ref, out = canvas[0, 16:, 32:], canvas[1, 16:, 32:]
+    res = torch.from_numpy(rng.integers(0, 256, size=(n, 16, 16),
+                                        dtype=np.uint8)).to(cuda)
+    # unvalidated vectors: windows that leave the plane clamp like the plain one
+    mvy, mvx = (torch.from_numpy(rng.integers(-40, 41, n).astype(np.int8)).to(cuda)
+                for _ in range(2))
+    hc = torch.from_numpy((rng.random(n) < 0.5).astype(np.uint8)).to(cuda)
+    want = mc_reconstruct_plain(res, ref, by, bx, mvy, mvx, hc, intra)
+    edge = canvas[1, :16].clone()
+    before = mc_reconstruct.launches
+    mc_reconstruct(res, ref, by, bx, mvy, mvx, hc, intra, out)
+    assert mc_reconstruct.launches - before == 1
+    assert torch.equal(out, want) and torch.equal(canvas[1, :16], edge)
+
+
+@pytest.mark.parametrize("path", CLIPS)
+def test_decoder_matches_reference(cuda, path):
+    data = open(os.path.join(ROOT, path), "rb").read()
+    n, ry, ru, rv, _ = runtime.ref_decode(data)
+    before = (decode_blocks.launches, mc_reconstruct.launches)
+    got = []
+    dec = Decoder(io.BytesIO(data), device="cuda")
+    while dec.advance_frame(got.append):
+        pass
+    assert len(got) == n
+    assert (decode_blocks.launches - before[0], mc_reconstruct.launches - before[1]) \
+        == (3 * n, 3 * n)
+    for i, f in enumerate(got):
+        for p, r in zip((f.plane_y, f.plane_u, f.plane_v), (ry[i], ru[i], rv[i])):
+            assert np.array_equal(p, r)
+
+
+def test_fallback_stream_runs_k5_k7_and_not_k1(cuda):
+    data = synth.random_stream(4112, 32, 3, seed=12)
+    assert tdl.choose_route(data).gate == "2*scp <= 1024"
+    before = (step_frames.launches, decode_blocks.launches)
+    y, u, v = tdl.decode_video_yuv(data, device="cuda")
+    assert step_frames.launches == before[0]
+    assert decode_blocks.launches - before[1] == 9
+    for p, r in zip((y, u, v), runtime.ref_decode(data)[1:4]):
+        assert np.array_equal(p.cpu().numpy(), r)
+
+
+def test_new_kernels_raise_on_mixed_devices(cuda):
+    coeffs = torch.zeros((4, 4, 64), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        decode_blocks(coeffs, torch.ones(64, dtype=torch.int32))
+    res = torch.zeros((4, 16, 16), dtype=torch.uint8, device=cuda)
+    by, bx = (torch.from_numpy(o).to(cuda) for o in block_origins(32, 32))
+    mv = torch.zeros(4, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        mc_reconstruct(res, torch.zeros((32, 32), dtype=torch.uint8), by, bx, mv, mv,
+                       mv.view(torch.uint8), False)

@@ -5,11 +5,18 @@ scalar reference decoder `runtime.ref_decode`. All comparisons are exact.
 
 Clips: those of test_units_kernel.py (256x128 with an I-frame mid-stream,
 128x96 with one keyframe, q0 with multi-chunk tiles), plus 136x90, whose
-width is not a multiple of 128: only the port and ref_decode take it."""
+width is not a multiple of 128: only the port and ref_decode take it.
+
+Fault streams, which K1's gates refuse and which decode frame by frame
+(K5 + K7) instead: the 128x96 clip with its I-packet re-encoded on q-table
+indices (0, 1, 3), the same clip without its I-packet (the first frame is
+P), and a 4112x32 stream built from runtime payloads. The JAX package takes
+them through its per-block XLA paths."""
 
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 
@@ -19,6 +26,8 @@ import torch
 
 import pfv_torch
 from pfv_torch import dataloader as tdl
+from pfv_torch import synth
+from pfv_torch.dec import split_packets
 from pfv_tpu import dataloader as jdl
 from pfv_tpu import runtime
 from pfv_tpu.encoding import encode_video
@@ -117,19 +126,17 @@ def test_rgba_rgb_checksums_match_jax_units_path(clips):
 def test_gates_raise_by_name():
     g = tdl.geometry(4112, 128)  # 4096 is the widest that fits
     ft, qi = np.array([1, 2], np.uint8), np.array([[0, 1, 1], [2, 3, 3]], np.uint8)
-    with pytest.raises(ValueError, match="2\\*scp <= 1024"):
-        tdl.check_gates(g, ft, qi, 4)
+    assert tdl.failed_gate(g) == tdl.failed_gate(g, ft, qi, 4) == "2*scp <= 1024"
     g = tdl.geometry(128, 96)
-    tdl.check_gates(g, ft, qi, 4)
-    with pytest.raises(ValueError, match="first frame is intra"):
-        tdl.check_gates(g, ft[::-1], qi, 4)
-    with pytest.raises(ValueError, match="uniform q indices"):
-        tdl.check_gates(g, ft, np.array([[0, 1, 2], [2, 3, 3]], np.uint8), 4)
-    with pytest.raises(ValueError, match="uniform q indices"):
-        tdl.check_gates(g, np.array([1, 2, 2], np.uint8),
-                        np.array([[0, 1, 1], [2, 3, 3], [3, 3, 3]], np.uint8), 4)
+    assert tdl.failed_gate(g) is None and tdl.failed_gate(g, ft, qi, 4) is None
+    assert tdl.failed_gate(g, ft[::-1], qi, 4) == "first frame is intra"
+    uniform = "uniform q indices per frame type, U == V"
+    assert tdl.failed_gate(g, ft, np.array([[0, 1, 2], [2, 3, 3]], np.uint8), 4) == uniform
+    assert tdl.failed_gate(g, np.array([1, 2, 2], np.uint8),
+                           np.array([[0, 1, 1], [2, 3, 3], [3, 3, 3]], np.uint8),
+                           4) == uniform
     with pytest.raises(ValueError, match="out of range"):
-        tdl.check_gates(g, ft, qi, 3)
+        tdl.failed_gate(g, ft, qi, 3)
 
 
 def test_port_never_imports_jax(clips, tmp_path):
@@ -140,9 +147,75 @@ def test_port_never_imports_jax(clips, tmp_path):
         f"y, u, v = pfv_torch.decode_video_yuv(open({str(path)!r}, 'rb').read(),"
         " device='cpu')\n"
         "assert y.shape[0] == 5\n"
+        f"dec = pfv_torch.Decoder(open({str(path)!r}, 'rb'), device='cpu')\n"
+        "got = []\n"
+        "while dec.advance_frame(got.append):\n"
+        "    pass\n"
+        "assert len(got) == 5 and (got[4].plane_y == y[4].numpy()).all()\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "PYTHONPATH": ROOT})
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+FAULTS = {
+    # name: the K1 gate the stream fails
+    "128x96_q013": "uniform q indices per frame type, U == V",
+    "128x96_first_p": "first frame is intra",
+    "4112x32": "2*scp <= 1024",
+}
+
+
+@pytest.fixture(scope="module")
+def fault_streams(clips):
+    data = clips["128x96_one_key"]["data"]
+    info, packets = split_packets(data)
+    assert [t for t, _ in packets] == [1, 2, 2, 2, 2, 2]
+    nb = tdl.geometry(128, 96).nb
+    coeffs, _ = runtime.decode_iframe_payload(packets[0][1], nb)
+    requant = (1, runtime.encode_iframe_payload(coeffs, (0, 1, 3)))
+    return {
+        "128x96_q013": synth.container(128, 96, info["qtables"],
+                                       [requant] + packets[1:]),
+        "128x96_first_p": synth.container(128, 96, info["qtables"], packets[1:]),
+        "4112x32": synth.random_stream(4112, 32, 3, seed=12),
+    }
+
+
+@pytest.mark.parametrize("name", list(FAULTS))
+def test_fault_streams_take_the_frames_path_by_gate(fault_streams, name):
+    route = tdl.choose_route(fault_streams[name])
+    assert route.gate == FAULTS[name] and route.host is None
+    with pytest.raises(ValueError, match=f"gate '{re.escape(FAULTS[name])}'"):
+        tdl.demux_host(fault_streams[name])
+
+
+@pytest.mark.parametrize("name", list(FAULTS))
+def test_fault_streams_match_jax_and_reference(fault_streams, name):
+    data = fault_streams[name]
+    ry, ru, rv = runtime.ref_decode(data)[1:4]
+    got = [p.numpy() for p in pfv_torch.decode_video_yuv(data, device="cpu")]
+    want = [np.asarray(p) for p in jdl.decode_video_yuv(data)]
+    for p, q, r in zip(got, want, (ry, ru, rv)):
+        assert p.shape == r.shape and np.array_equal(p, r) and np.array_equal(p, q)
+    chans = pfv_torch.rgba_view(pfv_torch.decode_video_rgba(data, device="cpu"))
+    up = [np.repeat(np.repeat(p, 2, axis=1), 2, axis=2)[:, :ry.shape[1], :ry.shape[2]]
+          for p in (ru, rv)]
+    assert np.array_equal(chans[..., :3].numpy(), np.asarray(jdl.yuv_to_rgb(ry, *up)))
+    sums = pfv_torch.decode_video_checksums(data, device="cpu")
+    assert np.array_equal(sums.numpy().astype(np.uint32),
+                          jdl.plane_checksums(ry, ru, rv))
+
+
+@pytest.mark.parametrize("name", list(CLIPS))
+def test_frames_path_matches_units_path(clips, name):
+    data = clips[name]["data"]
+    route = tdl.choose_route(data)
+    assert route.gate is None and route.host is not None
+    g, units = tdl.decode_canvases(data, device="cpu")
+    g2, frames = tdl.decode_frames(data, device="cpu")
+    assert g2 == g and frames.shape == units.shape
+    for a, b in zip(tdl.slice_yuv(g, frames), tdl.slice_yuv(g, units)):
+        assert torch.equal(a, b)
