@@ -33,9 +33,28 @@ from the repository root. Phases, one line each:
      alternating), each layer of a whole 1080p clip through the Decoder's
      frame step (host entropy decode, H2D, K5, K7, D2H of the frames) and
      its advance_frame loop, and the per-frame fallback against the K1 path
-     per 1080p clip (host clock, synchronized).
-Each main-path phase (3, 8, 9) sets the launch counts to 0 just before it
-and reads them just after. The line before the last is the kernels' JSON
+     per 1080p clip (host clock, synchronized);
+ 11. rebuild the three corpora's source frames with pfv_torch.synth (no
+     JAX), and hold K6 (forward DCT + quantization) against its plain
+     version on the card: the intra entry on the 1080p first frame's three
+     padded planes, the delta entry on the first P-frame's blocks and the
+     motion search's winning windows;
+ 12. drive encode_video (quality 2, a keyframe every 60, as the corpora
+     were written) over the three sources and check each output's sha256
+     against the committed corpus, which the JAX package's encoder wrote;
+     check the launch counts of that run: K5, K6 and K7 three times (Y, U,
+     V) per frame encoded, K1 and K2 never;
+ 13. drive the streaming Encoder over the 512x384 source and the first GOP
+     of the 1080p pan: its bytes equal encode_video's, and the scalar
+     reference decoder's frames of the 512x384 output equal the Encoder's
+     own in-loop reconstruction; launch counts as in 12;
+ 14. time K6 per 1080p frame (CUDA events with the wrapper, profiler device
+     time, plain version alternating), encode_video's frames/s per corpus,
+     each layer of a whole 1080p encode (source H2D, motion search, K6,
+     in-loop K5 + K7, compaction and D2H, host mux; each synchronized) and
+     the device's busy share of a whole 1080p encode (profiler).
+Each main-path phase (3, 8, 9, 12, 13) sets the launch counts to 0 just
+before it and reads them just after. The line before the last is the kernels' JSON
 summary; the last line is the device JSON. Any failure raises, so the exit code is not 0; without a CUDA
 device, or without the repository around it, it exits non-zero before
 printing a result.
@@ -43,14 +62,18 @@ printing a result.
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -62,6 +85,14 @@ CORPORA = {
 TIMED = ("1080p", "1080p_pan")  # K1 per-clip times; K2 on the first
 REPS = 5
 FALLBACK_WIDE = (4112, 64, 6)  # width, height, frames of the random stream
+# the corpora's sources: width, height, frames, generator (bench.py CONFIGS)
+SOURCES = {
+    "512x384": (512, 384, 161, "std"),
+    "1080p_pan": (1920, 1080, 120, "pan"),
+    "1080p": (1920, 1080, 120, "std"),
+}
+QUALITY, KEYFRAMES, FPS = 2, 60, 30
+ENC_REPS = 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -107,13 +138,14 @@ def median_host_ms(fn) -> float:
 
 
 def counts():
+    from pfv_torch.kernels.fdct import fdct_blocks
     from pfv_torch.kernels.idct import decode_blocks
     from pfv_torch.kernels.mc import mc_reconstruct
     from pfv_torch.kernels.rgba import canvas_rgba
     from pfv_torch.kernels.step import step_frames
 
     return {"K1": step_frames, "K2": canvas_rgba, "K5": decode_blocks,
-            "K7": mc_reconstruct}
+            "K6": fdct_blocks, "K7": mc_reconstruct}
 
 
 def zero_counts() -> None:
@@ -168,6 +200,144 @@ def kernel_pair_inputs(fd, frame, prev):
             mvy = mvx = torch.zeros(n, dtype=torch.int8, device=coeffs.device)
             hc = mvy.view(torch.uint8)
         yield (coeffs.view(n, 4, 64), q), (by, bx, mvy, mvx, hc)
+
+
+def synth_sources(pool):
+    """The corpora's source frames as (Y, U, V) uint8 stacks, per corpus."""
+    from pfv_torch import synth
+
+    out = {}
+    for name, (w, h, f, kind) in SOURCES.items():
+        if kind == "pan":
+            out[name] = synth.synth_pan_clip(f, w, h)
+            continue
+        frames = list(pool.map(lambda t: synth.synth_yuv_frame(t, w, h), range(f)))
+        out[name] = tuple(np.stack([p[i] for p in frames]) for i in range(3))
+    return out
+
+
+def packets_prefix(data: bytes, n: int) -> bytes:
+    """The header and first n packets of a .pfv stream, then an EOF packet."""
+    from pfv_torch import runtime
+
+    _, off = runtime.parse_header(data)
+    for _ in range(n):
+        off += 5 + struct.unpack_from("<BI", data, off)[1]
+    return data[:off] + struct.pack("<BI", 0, 0)
+
+
+def stream_encode(planes, w, h, n, recon=None) -> bytes:
+    """The first n frames through the streaming Encoder on the card; each
+    frame's in-loop reconstruction (unpadded, host) appended to `recon`."""
+    from pfv_torch import Encoder, VideoFrame
+
+    buf = io.BytesIO()
+    with Encoder(buf, w, h, FPS, QUALITY, device="cuda") as enc:
+        for t in range(n):
+            f = VideoFrame(w, h, *(p[t] for p in planes))
+            (enc.encode_iframe if t % KEYFRAMES == 0 else enc.encode_pframe)(f)
+            if recon is not None:
+                y, u, v = (p.to("cpu", copy=True).numpy() for p in enc.reconstruction())
+                recon.append((y[:h, :w], u[:h // 2, :w // 2], v[:h // 2, :w // 2]))
+    return buf.getvalue()
+
+
+def encode_layers(planes, w, h, dev):
+    """One encode of a clip through encode_video's layers, each ending in a
+    synchronize -> (bytes, ms per layer)."""
+    from pfv_torch import runtime
+    from pfv_torch.device import iframe_decode_plane, origins_for, pframe_decode_plane
+    from pfv_torch.enc import container_header
+    from pfv_torch.frame import geometry
+    from pfv_torch.kernels.fdct import fdct_blocks
+    from pfv_torch.ops.blocks import plane_to_blocks
+    from pfv_torch.ops.motion import motion_search
+    from pfv_torch.ops.pframe import skip_threshold
+    from pfv_torch.ops.quant import derive_q_tables
+
+    ms = dict.fromkeys(("host pad", "source H2D", "motion search", "K6",
+                        "K5+K7 in-loop", "compaction+D2H", "host mux"), 0.0)
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        ms[name] += 1e3 * (now - clock[0])
+        clock[0] = now
+
+    f = planes[0].shape[0]
+    g = geometry(w, h)
+    shapes = ((g.ly0, g.lyw), (g.lc0, g.lcw), (g.lc0, g.lcw))
+    qt_host = derive_q_tables(QUALITY)
+    qt = {k: torch.from_numpy(t).to(dev) for k, t in qt_host.items()}
+    min_err = skip_threshold(QUALITY)
+    origins = [origins_for(*s, dev) for s in shapes]
+    bounds = (0, g.yb, g.yb + g.cb, g.nb)
+    padded = []
+    for p, s, c in zip(planes, shapes, (0, 128, 128)):
+        a = np.full((f, *s), c, dtype=np.uint8)
+        a[:, :p.shape[1], :p.shape[2]] = p
+        padded.append(a)
+    lap("host pad")
+    src = [torch.from_numpy(a).to(dev) for a in padded]
+    lap("source H2D")
+    live = torch.empty((f, g.nb, 256), dtype=torch.int16, device=dev)
+    mvx = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
+    mvy = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
+    hc = torch.ones((f, g.nb), dtype=torch.bool, device=dev)
+    prev = [torch.full(s, c, dtype=torch.uint8, device=dev)
+            for s, c in zip(shapes, (0, 128, 128))]
+    back = [torch.empty_like(p) for p in prev]
+    lap("compaction+D2H")
+    for t in range(f):
+        key = t % KEYFRAMES == 0
+        for i in range(3):
+            sl, (by, bx) = slice(bounds[i], bounds[i + 1]), origins[i]
+            blocks = plane_to_blocks(src[i][t])
+            q = qt[("intra_" if key else "inter_") + ("l" if i == 0 else "c")]
+            if key:
+                lap("motion search")
+                c = fdct_blocks(blocks, q)
+                lap("K6")
+                iframe_decode_plane(c.view(-1, 256), q, src[i][t], by, bx, back[i])
+                lap("K5+K7 in-loop")
+                live[t, sl] = c.view(-1, 256)
+            else:
+                mx, my, err, win = motion_search(blocks, prev[i], by, bx)
+                coded = err.to(torch.float32) > float(min_err)
+                lap("motion search")
+                c = fdct_blocks(blocks, q, win)
+                lap("K6")
+                mx, my = mx.to(torch.int8), my.to(torch.int8)
+                pframe_decode_plane(c.view(-1, 256), mx, my, coded.to(torch.uint8),
+                                    prev[i], q, by, bx, back[i])
+                lap("K5+K7 in-loop")
+                torch.mul(c.view(-1, 256), coded[:, None], out=live[t, sl])
+                mvx[t, sl], mvy[t, sl], hc[t, sl] = mx, my, coded
+            lap("compaction+D2H")
+        prev, back = back, prev
+    flat = live.view(f, -1)
+    frame_of, idx = torch.nonzero(flat, as_tuple=True)
+    val, counts = flat[frame_of, idx], torch.bincount(frame_of, minlength=f)
+    idx, val, counts, mvx, mvy, hc = (x.cpu().numpy() for x in (
+        idx.to(torch.int32), val, counts, mvx, mvy, hc))
+    lap("compaction+D2H")
+    out = [container_header(w, h, FPS, qt_host)]
+    ends = np.cumsum(counts)
+    for t in range(f):
+        lo, hi = ends[t] - counts[t], ends[t]
+        if t % KEYFRAMES == 0:
+            payload = runtime.encode_iframe_payload_sparse(idx[lo:hi], val[lo:hi],
+                                                           g.nb, (0, 1, 1))
+        else:
+            payload = runtime.encode_pframe_payload_sparse(
+                idx[lo:hi], val[lo:hi], mvx[t], mvy[t], hc[t].astype(np.uint8),
+                (2, 3, 3))
+        out += [struct.pack("<BI", 1 if t % KEYFRAMES == 0 else 2, len(payload)),
+                payload]
+    out.append(struct.pack("<BI", 0, 0))
+    lap("host mux")
+    return b"".join(out), ms
 
 
 def main() -> int:
@@ -481,6 +651,141 @@ def main() -> int:
           f"per-frame fallback {statistics.median(fb_ms):.3f} ms "
           f"({fb_refs['1080p_first_p'][0].shape[0]} frames, first frame P) ({card})")
 
+    # phase 11: the sources, then K6 against its plain version
+    from pfv_torch import encode_video
+    from pfv_torch.device import iframe_encode_plane, origins_for, pad_plane_host
+    from pfv_torch.kernels.fdct import fdct_blocks, fdct_blocks_plain
+    from pfv_torch.ops.blocks import plane_to_blocks
+    from pfv_torch.ops.motion import motion_search
+    from pfv_torch.ops.quant import derive_q_tables
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        srcs = synth_sources(pool)
+    print(f"phase 11 sources rebuilt with pfv_torch.synth: " + ", ".join(
+        f"{k} {tuple(v[0].shape)}" for k, v in srcs.items())
+        + f" in {time.perf_counter() - t0:.1f} s")
+    qt = {k: torch.from_numpy(v).to(dev) for k, v in derive_q_tables(QUALITY).items()}
+    g = dl.geometry(1920, 1080)
+    k6_in = {"intra": [], "delta": []}
+    for i, (shape, clear) in enumerate((((g.ly0, g.lyw), 0), ((g.lc0, g.lcw), 128),
+                                        ((g.lc0, g.lcw), 128))):
+        f0, f1 = (pad_plane_host(srcs["1080p"][i][t], *shape, clear, dev) for t in (0, 1))
+        by, bx = origins_for(*shape, dev)
+        qi, qp = qt["intra_l" if i == 0 else "intra_c"], qt["inter_l" if i == 0 else "inter_c"]
+        _, recon = iframe_encode_plane(f0, qi, by, bx)
+        b1 = plane_to_blocks(f1)
+        k6_in["intra"].append((plane_to_blocks(f0), qi))
+        k6_in["delta"].append((b1, qp, motion_search(b1, recon, by, bx)[3]))
+    err_k6 = 0
+    for entry, args in k6_in.items():
+        e = max(max_abs_err(fdct_blocks(*a), fdct_blocks_plain(*a)) for a in args)
+        print(f"phase 11 K6 vs plain, 1080p frame {0 if entry == 'intra' else 1} "
+              f"({entry} entry, Y/U/V {[a[0].shape[0] for a in args]} blocks): "
+              f"max_abs_err {e}")
+        err_k6 = max(err_k6, e)
+    check(err_k6 == 0, "K6 disagrees with its plain version")
+
+    # phase 12: encode_video, the encode main path, against the JAX bytes
+    zero_counts()
+    encoded, enc_first_ms = {}, {}
+    for name, planes in srcs.items():
+        t0 = time.perf_counter()
+        encoded[name] = encode_video(*planes, FPS, QUALITY, KEYFRAMES, device="cuda")
+        enc_first_ms[name] = 1e3 * (time.perf_counter() - t0)
+    enc_launches = read_counts()
+    for name, data in encoded.items():
+        want = datas[name]
+        got_sha, want_sha = (hashlib.sha256(d).hexdigest() for d in (data, want))
+        print(f"phase 12 encode_video {name} ({SOURCES[name][2]} frames, whole file): "
+              f"{len(data)} bytes sha256 {got_sha}; {CORPORA[name]} sha256 "
+              f"{want_sha}; equal: {data == want}")
+        check(data == want, f"encode_video {name} differs from the JAX package's bytes")
+    enc_frames = sum(v[2] for v in SOURCES.values())
+    print(f"phase 12 launches in the encode run: {enc_launches} (frames encoded "
+          f"{enc_frames})")
+    check(enc_launches["K5"] == enc_launches["K6"] == enc_launches["K7"] == 3 * enc_frames,
+          "K5, K6 and K7 were not launched three times per encoded frame")
+    check(enc_launches["K1"] == enc_launches["K2"] == 0, "the encoder launched K1 or K2")
+
+    # phase 13: the streaming Encoder, and the round trip
+    zero_counts()
+    recon = []
+    w, h, n, _ = SOURCES["512x384"]
+    data = stream_encode(srcs["512x384"], w, h, n, recon)
+    check(data == encoded["512x384"], "Encoder 512x384 differs from encode_video")
+    ry = runtime.ref_decode(data)[1:4]
+    exact = len(recon) == ry[0].shape[0] and all(
+        (a == r[t]).all() for t, planes in enumerate(recon) for a, r in zip(planes, ry))
+    print(f"phase 13 Encoder 512x384 ({n} frames): bytes equal to encode_video's; "
+          f"ref_decode of them equals the in-loop reconstruction: {exact}")
+    check(exact, "the reference decoder's frames differ from the in-loop reconstruction")
+    data = stream_encode(srcs["1080p_pan"], 1920, 1080, KEYFRAMES)
+    exact = data == packets_prefix(encoded["1080p_pan"], KEYFRAMES)
+    print(f"phase 13 Encoder 1080p_pan first GOP ({KEYFRAMES} frames): bytes equal to "
+          f"encode_video's first GOP: {exact}")
+    check(exact, "Encoder 1080p_pan first GOP differs from encode_video")
+    st_launches = read_counts()
+    print(f"phase 13 launches in the Encoder run: {st_launches} (frames encoded "
+          f"{n + KEYFRAMES})")
+    check(st_launches["K5"] == st_launches["K6"] == st_launches["K7"]
+          == 3 * (n + KEYFRAMES), "the Encoder did not launch K5, K6, K7 3x per frame")
+
+    # phase 14: times
+    times["K6"] = {e: paired_ms(lambda: [fdct_blocks(*a) for a in args],
+                                lambda: [fdct_blocks_plain(*a) for a in args])
+                   for e, args in k6_in.items()}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            for args in k6_in.values():
+                for a in args:
+                    fdct_blocks(*a)
+        torch.cuda.synchronize()
+    k6_us = {e: sum(getattr(ev, "device_time_total", 0) for ev in prof.key_averages()
+                    if f"fdct_kernel<{flag}>" in ev.key) / 10
+             for e, flag in (("intra", "false"), ("delta", "true"))}
+    print("phase 14 K6 per 1080p frame (Y, U, V): " + "; ".join(
+        f"{e} entry: kernel {times['K6'][e][0]:.4f} ms with the wrapper, plain "
+        f"{times['K6'][e][1]:.4f} ms, device time "
+        + (f"{k6_us[e]:.2f} us" if k6_us[e] else "not measured (no device time seen)")
+        for e in k6_in) + f" ({card})")
+    fps = {}
+    for name, planes in srcs.items():
+        runs = [host_ms(lambda: encode_video(*planes, FPS, QUALITY, KEYFRAMES,
+                                             device="cuda")) for _ in range(ENC_REPS)]
+        fps[name] = 1e3 * SOURCES[name][2] / statistics.median(runs)
+        print(f"phase 14 encode_video {name}: first call {enc_first_ms[name]:.3f} ms, "
+              f"median of {ENC_REPS} {statistics.median(runs):.3f} ms "
+              f"({', '.join(f'{r:.3f}' for r in runs)}), {fps[name]:.2f} frames/s "
+              f"({card})")
+    for name in ("1080p", "1080p_pan"):
+        w, h = SOURCES[name][:2]
+        runs = []
+        for _ in range(ENC_REPS):
+            data, ms = encode_layers(srcs[name], w, h, dev)
+            check(data == datas[name], f"the layer-timed encode of {name} differs")
+            runs.append(ms)
+        lt = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        print(f"phase 14 encode layers per {name} clip ({SOURCES[name][2]} frames, "
+              f"each synchronized, median of {ENC_REPS}), ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in lt.items())
+              + f" (sum {sum(lt.values()):.3f}) ({card})")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall = host_ms(lambda: encode_video(*srcs["1080p"], FPS, QUALITY, KEYFRAMES,
+                                            device="cuda"))
+    # kernels and copies only: an operator's device time is its kernels'
+    on_card = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(ev.self_device_time_total for ev in on_card)
+    top = sorted(on_card, key=lambda ev: -ev.self_device_time_total)
+    print(f"phase 14 encode_video 1080p under the profiler: wall {wall:.3f} ms, device "
+          f"busy {busy_us / 1e3:.3f} ms, busy share {busy_us / 1e3 / wall:.4f}; top "
+          "device time: " + "; ".join(
+              f"{ev.key[:70]} {ev.self_device_time_total / 1e3:.3f} ms ({ev.count} runs)"
+              for ev in top[:8]) + f" ({card})")
+
     kernels = [
         {"name": "step_frame", "route": "cuda",
          "source": "pfv_torch/csrc/step_kernel.cu",
@@ -502,6 +807,11 @@ def main() -> int:
          "replaces": "pfv_tpu/ops/pallas/mc_kernel.py:31",
          "launches": dec_launches["K7"], "max_abs_err": err_k7,
          "ms": times["K7"][0], "plain_ms": times["K7"][1]},
+        {"name": "fdct_quantize", "route": "cuda",
+         "source": "pfv_torch/csrc/fdct_kernel.cu",
+         "replaces": "pfv_tpu/ops/pallas/dct_kernel.py:61",
+         "launches": enc_launches["K6"], "max_abs_err": err_k6,
+         "ms": times["K6"]["delta"][0], "plain_ms": times["K6"]["delta"][1]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
-"""pfv_torch: the PFV codec's decode in PyTorch, with hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a).
+"""pfv_torch: the PFV codec in PyTorch, with hand-written CUDA kernels for
+NVIDIA Hopper (sm_90a).
 
-Two entry points: the whole-clip decode (`decode_video_yuv` and its RGBA,
-RGB and checksum forms) and the streaming `Decoder`. The JAX package
+Decode has two entry points: the whole-clip decode (`decode_video_yuv` and
+its RGBA, RGB and checksum forms) and the streaming `Decoder`. Encode has
+two: the streaming `Encoder` and the whole-clip `encode_video`. The JAX package
 `pfv_tpu` beside it is the reference; this package never imports jax. It
 shares the C++ entropy/container runtime with it, loaded by file path
 (`pfv_torch.runtime`).
@@ -13,6 +14,8 @@ from pfv_torch.dataloader import (decode_video_checksums, decode_video_rgb,
                                   plane_checksums, rgba_view)
 from pfv_torch.dec import (PFV_VERSION, DecodeError, Decoder, FormatError,
                            StreamIOError, VersionError)
+from pfv_torch.enc import Encoder
+from pfv_torch.encoding import encode_video
 from pfv_torch.frame import VideoFrame
 
 CODEC_VERSION = PFV_VERSION
@@ -21,6 +24,7 @@ __all__ = [
     "CODEC_VERSION",
     "DecodeError",
     "Decoder",
+    "Encoder",
     "FormatError",
     "StreamIOError",
     "VersionError",
@@ -29,6 +33,7 @@ __all__ = [
     "decode_video_rgb",
     "decode_video_rgba",
     "decode_video_yuv",
+    "encode_video",
     "plane_checksums",
     "rgba_view",
 ]

@@ -12,7 +12,7 @@
 //      quirk Q1) in wrapping uint32, and stores it at its row-major place
 //      ZIGZAG[k] of the subblock's row in shared memory;
 //   2. each thread reads its subblock's 64 values into registers, runs the
-//      integer iDCT (idct8.cuh: columns, then rows) and clamps
+//      integer iDCT (dct8.cuh: columns, then rows) and clamps
 //      (m >> 8) + 128 to 0..255;
 //   3. writes pixel (i, j) of subblock q = 2*sr + sc to row 8*sr + i,
 //      column 8*sc + j of its macroblock, eight bytes per store.
@@ -26,7 +26,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "idct8.cuh"
+#include "dct8.cuh"
 
 namespace {
 

@@ -14,7 +14,7 @@
 //      into a 64 x 128 int32 shared-memory accumulator with atomicAdd,
 //      which is exact in any order (a coefficient may span several units);
 //   2. dequantizes with qmul[I/P][luma/chroma][r] in wrapping int32 (Q1);
-//   3. runs the integer 8x8 iDCT (idct8.cuh), columns then rows, one
+//   3. runs the integer 8x8 iDCT (dct8.cuh), columns then rows, one
 //      thread per lane, and clamps (m >> 8) + 128 to 0..255;
 //   4. merges lane l = 4*gc + 2*sr + sc, pixel (i, j) to stripe row
 //      8*sr + i, column 16*gc + 8*sc + j (lanes past the canvas drop out);
@@ -36,7 +36,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "idct8.cuh"
+#include "dct8.cuh"
 
 namespace {
 

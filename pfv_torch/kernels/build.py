@@ -89,5 +89,7 @@ def lib() -> ctypes.CDLL:
             so.pfv_idct_blocks.restype = i
             so.pfv_mc_reconstruct.argtypes = [p, p, i, i, i] + [p] * 5 + [i, p, i, i, p]
             so.pfv_mc_reconstruct.restype = i
+            so.pfv_fdct_blocks.argtypes = [p] * 4 + [i, p]
+            so.pfv_fdct_blocks.restype = i
             _lib = so
         return _lib

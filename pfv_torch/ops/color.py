@@ -8,6 +8,7 @@ resampling is point sampling, not averaging (quirk Q11).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _F = torch.float32
@@ -48,6 +49,17 @@ def rgb_to_yuv(rgb: torch.Tensor):
     u = ((128.0 - _UR * r) - _UG * g) + _HALF * b
     v = ((128.0 + _HALF * r) - _VG * g) - _VB * b
     return tuple(_sat(p).to(torch.uint8) for p in (y, u, v))
+
+
+def rgb_to_yuv_np(rgb: np.ndarray):
+    """numpy twin of rgb_to_yuv (the same float32 math and saturating
+    cast), for host-side synthesis of source frames."""
+    r, g, b = (rgb[..., i].astype(np.float32) for i in range(3))
+    f = np.float32
+    y = (f(0.299) * r) + (f(0.587) * g) + (f(0.114) * b)
+    u = f(128.0) - (f(0.168736) * r) - (f(0.331264) * g) + (f(0.5) * b)
+    v = f(128.0) + (f(0.5) * r) - (f(0.418688) * g) - (f(0.081312) * b)
+    return tuple(np.clip(np.trunc(p), 0.0, 255.0).astype(np.uint8) for p in (y, u, v))
 
 
 def reduce_plane(plane: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
-"""Dequantization of PFV v2.1.1 (counterpart of pfv_tpu/ops/quant.py).
+"""Quantization and dequantization of PFV v2.1.1, and the encoder's
+q-tables (counterpart of pfv_tpu/ops/quant.py).
 
-Dequantize indexes the scale factor and the q-table by the zigzag slot, not
-the row-major position (quirk Q1, FORMAT.md); the decode path folds both into
-per-row multipliers with INV_ZIGZAG_TABLE.
+Quantize indexes the scale factor and the q-table by the row-major position
+of the coefficient it writes to a zigzag slot; dequantize indexes them by the
+zigzag slot. The two disagree at 56 of 64 positions, and the format needs
+the asymmetry (quirk Q1, FORMAT.md).
 """
 
 from __future__ import annotations
@@ -24,6 +26,23 @@ DCT_SCALE_FACTOR = np.array(
     ],
     dtype=np.int32,
 )
+
+# Base quantization tables.
+Q_TABLE_INTRA = np.array(
+    [
+        8, 16, 19, 22, 26, 27, 29, 34,
+        16, 16, 22, 24, 27, 29, 34, 37,
+        19, 22, 26, 27, 29, 34, 34, 38,
+        22, 22, 26, 27, 29, 34, 37, 40,
+        22, 26, 27, 29, 32, 35, 40, 48,
+        26, 27, 29, 32, 35, 40, 48, 58,
+        26, 27, 29, 34, 38, 46, 56, 69,
+        27, 29, 35, 38, 46, 56, 69, 83,
+    ],
+    dtype=np.int32,
+)
+
+Q_TABLE_INTER = np.full(64, 16, dtype=np.int32)
 
 # ZIGZAG_TABLE[i] = row-major element index written to zigzag slot i.
 ZIGZAG_TABLE = np.array(
@@ -60,3 +79,48 @@ def dequantize(qm: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
     scale = torch.from_numpy(DCT_SCALE_FACTOR).to(qm.device)[iz]
     val = qm[..., iz].to(torch.int32) * scale
     return val * torch.broadcast_to(q_table, qm.shape)[..., iz].to(torch.int32)
+
+
+def trunc_div(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Signed integer division truncating toward zero (Rust `/`), d > 0."""
+    return torch.div(n, d, rounding_mode="trunc")
+
+
+def quantize(m: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
+    """Quantize row-major DCT coefficients (..., 64) i32 -> zigzag (..., 64) i16.
+
+    out[..., i] = ((m[idx] * SCALE[idx]) >> 16) / q[idx], idx = ZIGZAG_TABLE[i]:
+    SCALE and q indexed by the row-major position (quirk Q1). The shift
+    floors and the division truncates, two different roundings. q_table
+    broadcasts against m.
+    """
+    idx = torch.from_numpy(ZIGZAG_TABLE).long().to(m.device)
+    scale = torch.from_numpy(DCT_SCALE_FACTOR).to(m.device)[idx]
+    n = (m[..., idx] * scale) >> 16
+    d = torch.broadcast_to(q_table, m.shape)[..., idx].to(torch.int32)
+    return trunc_div(n, d).to(torch.int16)
+
+
+def derive_q_tables(quality: int) -> dict[str, np.ndarray]:
+    """The encoder's four (64,) int32 q-tables for quality 0..=10.
+
+    float32 numpy math, op for op as the reference encoder, and its
+    truncating cast: max(base * quality * 0.25 {* 0.5 for luma}, 1.0).
+    Quality is inverted (quirk Q4): higher is coarser.
+    """
+    if not 0 <= quality <= 10:
+        raise ValueError("quality must be in 0..=10")
+    qscale = np.float32(quality) * np.float32(0.25)
+
+    def derive(base: np.ndarray, lum_scale: bool) -> np.ndarray:
+        x = base.astype(np.float32) * qscale
+        if lum_scale:
+            x = x * np.float32(0.5)
+        return np.maximum(x, np.float32(1.0)).astype(np.int32)
+
+    return {
+        "intra_l": derive(Q_TABLE_INTRA, True),
+        "intra_c": derive(Q_TABLE_INTRA, False),
+        "inter_l": derive(Q_TABLE_INTER, True),
+        "inter_c": derive(Q_TABLE_INTER, False),
+    }

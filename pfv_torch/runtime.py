@@ -37,9 +37,12 @@ decode_iframe_payload = _rt.decode_iframe_payload
 decode_pframe_payload = _rt.decode_pframe_payload
 encode_iframe_payload = _rt.encode_iframe_payload
 encode_pframe_payload = _rt.encode_pframe_payload
+encode_iframe_payload_sparse = _rt.encode_iframe_payload_sparse
+encode_pframe_payload_sparse = _rt.encode_pframe_payload_sparse
 validate_motion = _rt.validate_motion
 
 __all__ = ["parse_header", "demux_file_sparse_tiles", "ref_decode",
            "decode_iframe_payload", "decode_pframe_payload",
            "encode_iframe_payload", "encode_pframe_payload",
+           "encode_iframe_payload_sparse", "encode_pframe_payload_sparse",
            "validate_motion"]

@@ -1,7 +1,11 @@
-"""Build .pfv streams from packets, without an encoder: seeded random
-streams, and containers for packets cut from other streams
-(dec.split_packets). Uses only the shared C++ runtime, so it runs where JAX
-is not installed."""
+"""Synthetic inputs, made where JAX is not installed.
+
+Source frames: numpy copies of pfv_tpu/utils/synth.py (`synth_rgb_frame`,
+`synth_yuv_frame`, `synth_pan_clip`), frame for frame the same, so the port
+can rebuild the sources of the committed corpora. Streams without an
+encoder: seeded random streams from runtime payloads, and containers for
+packets cut from other streams (dec.split_packets).
+"""
 
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import numpy as np
 from pfv_torch import runtime
 from pfv_torch.frame import geometry
 from pfv_torch.ops.blocks import block_origins
+from pfv_torch.ops.color import rgb_to_yuv_np
 
 
 def container(width: int, height: int, qtables: np.ndarray, packets,
@@ -55,3 +60,70 @@ def random_stream(width: int, height: int, frames: int, seed: int,
         packets.append((2, runtime.encode_pframe_payload(coeffs, mvx, mvy, hc,
                                                          (2, 3, 3))))
     return container(width, height, qtables, packets, fps)
+
+
+def synth_rgb_frame(t: int, width: int, height: int, seed: int = 1234) -> np.ndarray:
+    """Frame t of the deterministic synthetic clip, (H, W, 3) uint8: a
+    moving gradient, a translating textured rectangle, a bouncing ball and
+    mild seeded noise."""
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+
+    r = 96 + 64 * np.sin(0.013 * xx + 0.05 * t)
+    g = 96 + 64 * np.sin(0.017 * yy - 0.04 * t)
+    b = 96 + 64 * np.sin(0.011 * (xx + yy) + 0.03 * t)
+    img = np.stack([r, g, b], axis=-1)
+
+    rng = np.random.default_rng(seed)
+    tex = rng.integers(0, 255, size=(64, 96, 3)).astype(np.float32)
+    tex = (tex + np.roll(tex, 1, 0) + np.roll(tex, 1, 1) + np.roll(tex, 2, 1)) / 4
+    rx = int(40 + 3.0 * t) % max(1, width - 96) if width > 96 else 0
+    ry = int(30 + 1.5 * t) % max(1, height - 64) if height > 64 else 0
+    rh, rw = min(64, height - ry), min(96, width - rx)
+    img[ry : ry + rh, rx : rx + rw] = tex[:rh, :rw]
+
+    bx = width / 2 + (width / 2 - 40) * np.sin(0.11 * t)
+    by = height / 2 + (height / 2 - 40) * np.sin(0.07 * t + 1.0)
+    mask = (xx - bx) ** 2 + (yy - by) ** 2 < 30.0**2
+    img[mask] = np.array([230.0, 40.0, 40.0])
+
+    nrng = np.random.default_rng(seed * 100003 + t)
+    img += nrng.normal(0.0, 2.0, size=img.shape).astype(np.float32)
+
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def synth_yuv_frame(t: int, width: int, height: int, seed: int = 1234):
+    """Frame t as 4:2:0 (Y, U, V) uint8 planes, chroma point-decimated
+    (quirk Q11)."""
+    y, u, v = rgb_to_yuv_np(synth_rgb_frame(t, width, height, seed))
+    return y, u[::2, ::2].copy(), v[::2, ::2].copy()
+
+
+def synth_pan_clip(n_frames: int, width: int, height: int, seed: int = 99,
+                   dx: int = 3, dy: int = 1, t0: int = 0):
+    """Frames t0 .. t0+n_frames of the panning-camera clip as 4:2:0
+    (F, H, W) and (F, H/2, W/2) x2 uint8 stacks: a fixed world of
+    multi-octave value noise seen through a window that moves (dx, dy)
+    pixels per frame."""
+    rng = np.random.default_rng(seed)
+    wh, ww = height + 256, width + 256
+    world = np.full((wh, ww, 3), 128.0, dtype=np.float32)
+    for scale, amp in ((64, 48.0), (32, 28.0), (16, 16.0), (8, 9.0), (4, 5.0)):
+        g = rng.normal(0, amp, size=(wh // scale + 3, ww // scale + 3, 3))
+        g = g.repeat(scale, axis=0).repeat(scale, axis=1)
+        for axis in (0, 1):  # box blur at the octave's own scale
+            g = (g + np.roll(g, scale // 2, axis) +
+                 np.roll(g, -(scale // 2), axis)) / 3
+        world += g[:wh, :ww]
+    world += rng.normal(0, 2.5, size=(wh, ww, 3))
+    world = np.clip(world, 0, 255)
+
+    ys, us, vs = [], [], []
+    for t in range(t0, t0 + n_frames):
+        ox = (16 + dx * t) % (ww - width)
+        oy = (16 + dy * t) % (wh - height)
+        y, u, v = rgb_to_yuv_np(world[oy : oy + height, ox : ox + width].astype(np.uint8))
+        ys.append(y)
+        us.append(u[::2, ::2].copy())
+        vs.append(v[::2, ::2].copy())
+    return np.stack(ys), np.stack(us), np.stack(vs)

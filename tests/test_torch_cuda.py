@@ -1,6 +1,7 @@
 """Tests that need a CUDA card: each hand-written kernel against its plain
-PyTorch version on the card, and the decode (whole-clip, its per-frame
-fallback, the streaming Decoder) against the scalar reference.
+PyTorch version on the card, the decode (whole-clip, its per-frame
+fallback, the streaming Decoder) against the scalar reference, and the
+encode on the card against the encode on the CPU.
 They skip without a card. They need no JAX; where it is not installed,
 skip tests/conftest.py (which imports it):
 
@@ -19,6 +20,8 @@ import torch
 from pfv_torch import dataloader as tdl
 from pfv_torch import runtime, synth
 from pfv_torch.dec import Decoder
+from pfv_torch.encoding import encode_video
+from pfv_torch.kernels.fdct import fdct_blocks, fdct_blocks_plain
 from pfv_torch.kernels.idct import decode_blocks, decode_blocks_plain
 from pfv_torch.kernels.mc import mc_reconstruct, mc_reconstruct_plain
 from pfv_torch.kernels.rgba import canvas_rgba, canvas_rgba_plain
@@ -148,3 +151,39 @@ def test_new_kernels_raise_on_mixed_devices(cuda):
     with pytest.raises(ValueError):
         mc_reconstruct(res, torch.zeros((32, 32), dtype=torch.uint8), by, bx, mv, mv,
                        mv.view(torch.uint8), False)
+
+
+@pytest.mark.parametrize("n", [1, 33, 8160])
+@pytest.mark.parametrize("delta", [False, True])
+def test_fdct_kernel_matches_plain(cuda, n, delta):
+    rng = np.random.default_rng(n + delta)
+    blocks = rng.integers(0, 256, size=(n, 16, 16), dtype=np.uint8)
+    blocks[0] = 255 * (np.indices((16, 16)).sum(0) % 2)  # checker: extreme AC
+    win = rng.integers(0, 256, size=(n, 16, 16), dtype=np.uint8) if delta else None
+    q = torch.from_numpy(rng.integers(1, 60, size=64).astype(np.int32)).to(cuda)
+    blocks = torch.from_numpy(blocks).to(cuda)
+    win = None if win is None else torch.from_numpy(win).to(cuda)
+    before = fdct_blocks.launches
+    got = fdct_blocks(blocks, q, win)
+    assert fdct_blocks.launches - before == 1
+    assert got.dtype == torch.int16 and tuple(got.shape) == (n, 4, 64)
+    assert torch.equal(got, fdct_blocks_plain(blocks, q, win))
+
+
+def test_encode_video_on_the_card_equals_the_cpu(cuda):
+    w, h, f = 96, 64, 9
+    frames = [synth.synth_yuv_frame(t, w, h) for t in range(f)]
+    y, u, v = (np.stack([p[i] for p in frames]) for i in range(3))
+    before = fdct_blocks.launches
+    got = encode_video(y, u, v, 30, 3, 4, device="cuda")
+    assert fdct_blocks.launches - before == 3 * f
+    assert got == encode_video(y, u, v, 30, 3, 4, device="cpu")
+
+
+def test_fdct_kernel_raises_on_mixed_devices(cuda):
+    blocks = torch.zeros((4, 16, 16), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        fdct_blocks(blocks, torch.ones(64, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        fdct_blocks(blocks, torch.ones(64, dtype=torch.int32, device=cuda),
+                    torch.zeros((4, 16, 16), dtype=torch.uint8))
