@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 from the repository root. Phases, one line each:
-  1. build the CUDA kernels from pfv_torch/csrc with nvcc;
+  1. build the CUDA kernels from pfv_torch/csrc with nvcc and, beside them,
+     the port's own copy of the C++ entropy runtime with g++;
   2. hold each kernel against its plain PyTorch version on the card, on the
      inputs the main path gives it for the three committed corpora;
   3. drive the main path (decode_video_yuv on all three corpora,
      decode_video_rgba on 1080p, decode_video_checksums on 512x384) and
      check it pixel-exact against the scalar reference decoder;
   4. check the launch counts of that run: K1 once per decoded frame, K2 at
-     least once;
+     least once, no other kernel;
   5. time each kernel and its plain version per 1080p clip with CUDA events;
   6. time each layer of a whole 1080p decode (host demux, upload and
      tables, K1, K2) and the whole calls, host clock, synchronized;
@@ -23,12 +24,12 @@ from the repository root. Phases, one line each:
      on 1080p also decode_all and reset with a second pass; advance_delta on
      512x384) and check the launch counts of that run: K5 and K7 three
      times (Y, U, V) per frame decoded, K1 once per frame of decode_all;
-  9. drive the whole-clip decode over three streams K1's gates refuse,
-     built here from the shared runtime (1080p without its first I-packet,
-     1080p with it re-encoded on q-table indices (0, 1, 3), a 4112x64
-     random stream): decode_video_yuv pixel-exact and decode_video_rgba
-     byte-exact against the reference, K1 launched 0 times, K5 and K7
-     three times per frame;
+  9. drive the whole-clip decode over three streams the frame steps' gates
+     refuse, built here with the port's runtime (1080p without its first
+     I-packet, 1080p with it re-encoded on q-table indices (0, 1, 3), a
+     4112x64 random stream without its first I-packet): decode_video_yuv
+     pixel-exact and decode_video_rgba byte-exact against the reference,
+     K1, K3 and K4 launched 0 times, K5 and K7 three times per frame;
  10. time K5 and K7 per 1080p frame (CUDA events, kernel and plain
      alternating), each layer of a whole 1080p clip through the Decoder's
      frame step (host entropy decode, H2D, K5, K7, D2H of the frames) and
@@ -52,9 +53,27 @@ from the repository root. Phases, one line each:
      time, plain version alternating), encode_video's frames/s per corpus,
      each layer of a whole 1080p encode (source H2D, motion search, K6,
      in-loop K5 + K7, compaction and D2H, host mux; each synchronized) and
-     the device's busy share of a whole 1080p encode (profiler).
-Each main-path phase (3, 8, 9, 12, 13) sets the launch counts to 0 just
-before it and reads them just after. The line before the last is the kernels' JSON
+     the device's busy share of a whole 1080p encode (profiler);
+ 15. hold K3 (dense whole-clip step) and K4 (dense frame step, batched over
+     GOPs) against their plain versions on the card, on the inputs the dense
+     routes give them for the three corpora: K3 over the whole clip, K4 in
+     GOP form ((2, 60) at 1080p, (3, 60) at 512x384, 19 pad frames), step
+     by step;
+ 16. drive the dense routes: decode_video_yuv and decode_video_rgba of an
+     8K UHD stream (7680x4320, 24 frames, a keyframe every 8: route
+     "dense", K3) and of a 4112x64 stream with a keyframe every 4 (route
+     "gops", K4), and decode_packed_gops over the three corpora, all exact
+     against the reference; K3 launched once per 8K frame, K4 L times per
+     GOP-route clip, K1, K5 and K7 never;
+ 17. time K3 and K4 per clip against their plain versions (CUDA events and
+     profiler device time), each layer of the 8K decode (host demux, H2D,
+     tables, densify, K3, K2) and the whole calls, and the per-frame
+     fallback on the same 8K stream.
+Each main-path phase (3, 8, 9, 12, 13, 16) sets the launch counts to 0 just
+before it and reads them just after. The kernels' JSON line gives each
+kernel's time beside its bound: the larger of the bytes it must move at the
+card's 3.35 TB/s and its operations at 67 T/s, the H100's scalar rate,
+for the inputs of the timed call. The line before the last is the kernels' JSON
 summary; the last line is the device JSON. Any failure raises, so the exit code is not 0; without a CUDA
 device, or without the repository around it, it exits non-zero before
 printing a result.
@@ -85,6 +104,15 @@ CORPORA = {
 TIMED = ("1080p", "1080p_pan")  # K1 per-clip times; K2 on the first
 REPS = 5
 FALLBACK_WIDE = (4112, 64, 6)  # width, height, frames of the random stream
+UHD = (7680, 4320, 24, 8)  # width, height, frames, keyframe interval
+GOPS = {"1080p": (2, 60), "1080p_pan": (2, 60), "512x384": (3, 60)}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# operations per coefficient: dequantize + the 16 one-dimensional 8-point
+# transforms of an 8x8 block (~100 adds, shifts and masks each) + clamp;
+# forward DCT + quantization; per pixel: prediction, select and store, or
+# the colour conversion and packing
+IDCT_OPS, FDCT_OPS, PIXEL_OPS = 30, 35, 15
 # the corpora's sources: width, height, frames, generator (bench.py CONFIGS)
 SOURCES = {
     "512x384": (512, 384, 161, "std"),
@@ -137,15 +165,59 @@ def median_host_ms(fn) -> float:
     return statistics.median(host_ms(fn) for _ in range(REPS))
 
 
+def bound(nbytes: float, ops: float):
+    """(least ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def decoded_blocks(ftype, hc) -> int:
+    """Blocks a frame step inverse-transforms: all of an I-frame's, the
+    coded ones of a P-frame's. ftype (F,), hc (F, nb)."""
+    intra = ftype == 1
+    return int(torch.where(intra, hc.shape[1], hc.to(torch.int64).sum(1)).sum())
+
+
+def step_bound(ftype, hc, out, inputs, dense: bool = False):
+    """Bound of a frame step: its inputs read once (dense coefficients, not
+    among `inputs`, only where a block is decoded: 512 B each), the
+    canvases `out` written once, IDCT_OPS per decoded coefficient and
+    PIXEL_OPS per pixel. hc: (F, blocks) coded flags of the canvas."""
+    n = decoded_blocks(ftype, hc)
+    moved = nbytes(out, *inputs) + (512 * n if dense else 0)
+    return bound(moved, IDCT_OPS * 256 * n + PIXEL_OPS * out.numel())
+
+
+def gop_steps(step, g, per_step, qmul, out, plain=None):
+    """Run K4 (`step`) over the L steps of G GOPs into out (G, L, chh, cw),
+    from zero canvases; with `plain`, hold each step against it on the same
+    inputs -> the largest absolute difference."""
+    prev = torch.zeros_like(out[:, 0])
+    err = 0
+    for l in range(out.shape[1]):
+        args = (prev, *(t[:, l] for t in per_step), qmul, g.chh, g.cw, g.gly)
+        step(*args, out=out[:, l])
+        if plain is not None:
+            err = max(err, max_abs_err(out[:, l], plain(*args)))
+        prev = out[:, l]
+    return err
+
+
 def counts():
+    from pfv_torch.kernels.dense_step import seq_frames_dense, step_frames_batched
     from pfv_torch.kernels.fdct import fdct_blocks
     from pfv_torch.kernels.idct import decode_blocks
     from pfv_torch.kernels.mc import mc_reconstruct
     from pfv_torch.kernels.rgba import canvas_rgba
     from pfv_torch.kernels.step import step_frames
 
-    return {"K1": step_frames, "K2": canvas_rgba, "K5": decode_blocks,
-            "K6": fdct_blocks, "K7": mc_reconstruct}
+    return {"K1": step_frames, "K2": canvas_rgba, "K3": seq_frames_dense,
+            "K4": step_frames_batched, "K5": decode_blocks, "K6": fdct_blocks,
+            "K7": mc_reconstruct}
 
 
 def zero_counts() -> None:
@@ -362,9 +434,17 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    log = build.build()
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(lambda: (runtime.get_lib(), time.perf_counter() - t0))
+        log = build.build()
+        nvcc_s = time.perf_counter() - t0
+        rt_s = native.result()[1]
     build.lib()
-    print(f"phase 1 build: nvcc {time.perf_counter() - t0:.2f} s")
+    rt_path = runtime.so_path()
+    check(rt_path.startswith(os.path.join(ROOT, "pfv_torch", "build") + os.sep),
+          "the port's runtime library is not its own build")
+    print(f"phase 1 build: nvcc {nvcc_s:.2f} s; the port's C++ runtime with g++ "
+          f"beside it, {rt_s:.2f} s, {os.path.relpath(rt_path, ROOT)} ({card})")
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -416,9 +496,10 @@ def main() -> int:
           f"(frames decoded {frames}), K2 {launches['K2']}")
     check(launches["K1"] == frames, "K1 was not launched once per frame")
     check(launches["K2"] >= 1, "K2 was not launched")
-    check(launches["K5"] == launches["K7"] == 0, "the K1 path launched K5 or K7")
+    check(launches["K3"] == launches["K4"] == launches["K5"] == launches["K7"] == 0,
+          "the K1 path launched K3, K4, K5 or K7")
 
-    times = {}
+    times, bounds = {}, {}
     for name in TIMED:
         host = dl.demux_host(datas[name])
         g, args = dl.upload(host, dev)
@@ -434,6 +515,9 @@ def main() -> int:
                                     lambda: canvas_rgba_plain(canv, *geo))
             print(f"phase 5 K2 per clip, {name}: kernel {times['K2'][0]:.3f} ms, "
                   f"plain {times['K2'][1]:.3f} ms ({card})")
+            bounds["K1"] = step_bound(args[5], args[4].flatten(1), canv, args[:7])
+            px = canv.shape[0] * g.height * g.width
+            bounds["K2"] = bound(nbytes(canv) + 4 * px, PIXEL_OPS * px)
         canv = step_frames(*args, *dims)
         geo = (g.height, g.width, g.ly0, g.lcw)
         layers = {
@@ -530,14 +614,17 @@ def main() -> int:
         "1080p_first_p": synth.container(g.width, g.height, info["qtables"],
                                          packets[first_i + 1:]),
         "1080p_q013": synth.container(g.width, g.height, info["qtables"], requant),
-        "4112x64": synth.random_stream(*FALLBACK_WIDE, seed=2, keyframes=4),
     }
+    winfo, wpackets = split_packets(synth.random_stream(*FALLBACK_WIDE, seed=2,
+                                                        keyframes=4))
+    fallback["4112x64_first_p"] = synth.container(*FALLBACK_WIDE[:2], winfo["qtables"],
+                                                  wpackets[1:])
     fb_refs = {k: runtime.ref_decode(d)[1:4] for k, d in fallback.items()}
     gates = {k: dl.choose_route(d).gate for k, d in fallback.items()}
     zero_counts()
     fb_frames = 0
     for name, data in fallback.items():
-        check(gates[name] is not None, f"{name} passed K1's gates")
+        check(gates[name] is not None, f"{name} passed the frame steps' gates")
         planes = dl.decode_video_yuv(data, device="cuda")
         rgba = dl.decode_video_rgba(data, device="cuda")
         torch.cuda.synchronize()
@@ -555,7 +642,8 @@ def main() -> int:
     fb_launches = read_counts()
     print(f"phase 9 launches in the fallback run: {fb_launches} (frames decoded "
           f"{fb_frames})")
-    check(fb_launches["K1"] == 0, "a fallback stream launched K1")
+    check(fb_launches["K1"] == fb_launches["K3"] == fb_launches["K4"] == 0,
+          "a fallback stream launched K1, K3 or K4")
     check(fb_launches["K5"] == fb_launches["K7"] == 3 * fb_frames,
           "K5 and K7 were not launched three times per fallback frame")
     check(fb_launches["K2"] == len(fallback), "K2 was not launched once per RGBA call")
@@ -579,6 +667,11 @@ def main() -> int:
                 for r, p, (_, a), o in zip(blocks, refp, pin, outp)]
 
     times["K5"] = paired_ms(k5_frame, lambda: [decode_blocks_plain(*a) for a, _ in pin])
+    bounds["K5"] = bound(sum(nbytes(*a) + a[0].numel() for a, _ in pin),
+                         IDCT_OPS * sum(a[0].numel() for a, _ in pin))
+    bounds["K7"] = bound(sum(nbytes(r, p, *a) + o.numel() for r, p, (_, a), o
+                             in zip(blocks, refp, pin, outp)),
+                         PIXEL_OPS * sum(o.numel() for o in outp))
     times["K7"] = paired_ms(k7_frame, lambda: [
         mc_reconstruct_plain(r, p, *a, False, o)
         for r, p, (_, a), o in zip(blocks, refp, pin, outp)])
@@ -664,7 +757,7 @@ def main() -> int:
         srcs = synth_sources(pool)
     print(f"phase 11 sources rebuilt with pfv_torch.synth: " + ", ".join(
         f"{k} {tuple(v[0].shape)}" for k, v in srcs.items())
-        + f" in {time.perf_counter() - t0:.1f} s")
+        + f" in {time.perf_counter() - t0:.1f} s ({card})")
     qt = {k: torch.from_numpy(v).to(dev) for k, v in derive_q_tables(QUALITY).items()}
     g = dl.geometry(1920, 1080)
     k6_in = {"intra": [], "delta": []}
@@ -735,6 +828,8 @@ def main() -> int:
     times["K6"] = {e: paired_ms(lambda: [fdct_blocks(*a) for a in args],
                                 lambda: [fdct_blocks_plain(*a) for a in args])
                    for e, args in k6_in.items()}
+    bounds["K6"] = bound(sum(nbytes(*a) + 2 * a[0].numel() for a in k6_in["delta"]),
+                         FDCT_OPS * sum(a[0].numel() for a in k6_in["delta"]))
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
@@ -786,33 +881,201 @@ def main() -> int:
               f"{ev.key[:70]} {ev.self_device_time_total / 1e3:.3f} ms ({ev.count} runs)"
               for ev in top[:8]) + f" ({card})")
 
+    # phase 15: K3 and K4 against their plain versions, dense-route inputs
+    from pfv_torch.kernels.dense_step import (seq_frames_dense, seq_frames_dense_plain,
+                                              step_frames_batched,
+                                              step_frames_batched_plain)
+
+    def k3_inputs(host):
+        g, (coeffs, mvx, mvy, hc, ftype, qmul) = dl.upload_packed(host, device=dev)
+        return g, (coeffs, *dl.block_maps(g, mvx, mvy, hc), ftype, qmul, g.chh, g.cw,
+                   g.gly)
+
+    hosts = {k: dl.demux_host_packed(d) for k, d in datas.items()}
+    err_k3 = err_k4 = 0
+    for name, host in hosts.items():
+        g, args = k3_inputs(host)
+        e3 = max_abs_err(seq_frames_dense(*args), seq_frames_dense_plain(*args))
+        del args
+        _, f, per_step, qmul = dl.upload_gops(host, *GOPS[name], dev)
+        out = torch.empty((*GOPS[name], g.chh, g.cw), dtype=torch.uint8, device=dev)
+        e4 = gop_steps(step_frames_batched, g, per_step, qmul, out,
+                       step_frames_batched_plain)
+        exact = all((p.cpu().numpy() == r).all() for p, r in zip(
+            dl.slice_yuv(g, out.view(-1, g.chh, g.cw)[:f]), refs[name]))
+        print(f"phase 15 kernels vs plain, {name} ({f} frames, dense coefficients "
+              f"{tuple(per_step[0].shape[2:])} i16 per frame): K3 max_abs_err {e3}; K4 "
+              f"max_abs_err {e4} in GOP form {GOPS[name]} ({np.prod(GOPS[name]) - f} pad "
+              f"frames), its frames pixel-exact vs ref_decode: {exact}")
+        check(exact, f"K4's GOP decode of {name} differs from ref_decode")
+        err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
+        del per_step, out
+    check(err_k3 == 0 and err_k4 == 0, "K3 or K4 disagrees with its plain version")
+
+    # phase 16: the dense routes, the third main path
+    t0 = time.perf_counter()
+    uhd = synth.random_stream(*UHD[:3], seed=3, keyframes=UHD[3])
+    dense_streams = {"8K UHD": uhd,
+                     "4112x64": synth.random_stream(*FALLBACK_WIDE, seed=2, keyframes=4)}
+    d_refs = {k: runtime.ref_decode(d)[1:4] for k, d in dense_streams.items()}
+    routes = {k: dl.choose_route(d) for k, d in dense_streams.items()}
+    print(f"phase 16 streams built with the port's runtime and decoded by ref_decode in "
+          f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+              f"{k} {len(d)} bytes, {d_refs[k][0].shape[0]} frames, route "
+              f"'{routes[k].kind}' {routes[k].gops or ''}" for k, d in dense_streams.items())
+          + f" ({card})")
+    check(routes["8K UHD"].kind == "dense" and routes["4112x64"].kind == "gops",
+          "the wide streams did not take the dense routes")
+    zero_counts()
+    dense_out = {k: (dl.decode_video_yuv(d, device="cuda"),
+                     dl.decode_video_rgba(d, device="cuda"))
+                 for k, d in dense_streams.items()}
+    gop_out = {k: dl.decode_packed_gops(h, *GOPS[k], "yuv", device="cuda")
+               for k, h in hosts.items()}
+    gop_rgba = dl.decode_packed_gops(hosts["512x384"], *GOPS["512x384"], "rgba",
+                                     device="cuda")
+    dense_launches = read_counts()
+    for name, (planes, rgba) in dense_out.items():
+        exact = all((p.cpu().numpy() == r).all() for p, r in zip(planes, d_refs[name]))
+        gd = routes[name].g
+        exact_rgba = True
+        for f0 in range(0, rgba.shape[0], 4):  # the plain RGBA of 8K frames, 4 at a time
+            want = canvas_rgba_plain(ref_canvases(gd, [r[f0:f0 + 4] for r in d_refs[name]],
+                                                  dev), gd.height, gd.width, gd.ly0, gd.lcw)
+            exact_rgba &= torch.equal(rgba[f0:f0 + 4].view(torch.int32), want.view(torch.int32))
+        print(f"phase 16 dense route '{routes[name].kind}' {name}: {tuple(planes[0].shape)} "
+              f"decode_video_yuv pixel-exact vs ref_decode: {exact}, decode_video_rgba "
+              f"byte-exact: {exact_rgba}")
+        check(exact and exact_rgba, f"the dense route differs from ref_decode on {name}")
+    for name, planes in gop_out.items():
+        exact = all((p.cpu().numpy() == r).all() for p, r in zip(planes, refs[name]))
+        print(f"phase 16 decode_packed_gops {name} {GOPS[name]}: {tuple(planes[0].shape)} "
+              f"pixel-exact vs ref_decode: {exact}")
+        check(exact, f"decode_packed_gops {name} differs from ref_decode")
+    g = dl.geometry(512, 384)
+    want = canvas_rgba_plain(ref_canvases(g, refs["512x384"], dev), g.height, g.width,
+                             g.ly0, g.lcw)
+    exact = torch.equal(gop_rgba.view(torch.int32), want.view(torch.int32))
+    print(f"phase 16 decode_packed_gops 512x384 rgba: byte-exact vs plain K2 of "
+          f"ref_decode planes: {exact}")
+    check(exact, "decode_packed_gops rgba differs")
+    k4_want = (2 * routes["4112x64"].gops[1] + sum(GOPS[k][1] for k in hosts)
+               + GOPS["512x384"][1])
+    k3_want = 2 * d_refs["8K UHD"][0].shape[0]
+    print(f"phase 16 launches in the dense-route run: {dense_launches} (K3 expected "
+          f"{k3_want}: once per 8K frame, two calls; K4 expected {k4_want}: L per clip)")
+    check(dense_launches["K3"] == k3_want, "K3 was not launched once per 8K frame")
+    check(dense_launches["K4"] == k4_want, "K4 was not launched L times per GOP clip")
+    check(dense_launches["K1"] == dense_launches["K5"] == dense_launches["K7"] == 0,
+          "the dense routes launched K1, K5 or K7")
+    check(dense_launches["K2"] == 3, "K2 was not launched once per RGBA call")
+    del dense_out, gop_out, gop_rgba
+
+    # phase 17: times of K3 and K4 per clip, the 8K layers, the fallback
+    def kernel_device_ms(fn, reps=3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+                 if "dense_step_kernel" in e.key)
+        return us / reps / 1e3
+
+    host8 = dl.demux_host_packed(uhd)
+    k3_in = {}
+    for name, host in (("1080p", hosts["1080p"]), ("8K UHD", host8)):
+        g, args = k3_inputs(host)
+        times[("K3", name)] = paired_ms(lambda: seq_frames_dense(*args),
+                                        lambda: seq_frames_dense_plain(*args))
+        canv = seq_frames_dense(*args)
+        err_k3 = max(err_k3, max_abs_err(canv, seq_frames_dense_plain(*args)))
+        bounds[("K3", name)] = step_bound(args[4], args[3].flatten(1), canv, args[1:6],
+                                          dense=True)
+        dev_ms = kernel_device_ms(lambda: seq_frames_dense(*args))
+        print(f"phase 17 K3 per clip, {name} ({args[4].shape[0]} frames): kernel "
+              f"{times[('K3', name)][0]:.3f} ms, device time {dev_ms:.3f} ms, plain "
+              f"{times[('K3', name)][1]:.3f} ms, bound {bounds[('K3', name)][0]:.4f} ms "
+              f"({bounds[('K3', name)][1]}) ({card})")
+        k3_in[name] = (g, args, canv)
+    check(err_k3 == 0, "K3 disagrees with its plain version at 8K")
+    for name in ("512x384", "1080p"):
+        g, f, per_step, qmul = dl.upload_gops(hosts[name], *GOPS[name], dev)
+        out = torch.empty((*GOPS[name], g.chh, g.cw), dtype=torch.uint8, device=dev)
+        times[("K4", name)] = paired_ms(
+            lambda: gop_steps(step_frames_batched, g, per_step, qmul, out),
+            lambda: gop_steps(step_frames_batched_plain, g, per_step, qmul, out))
+        n = int(np.prod(GOPS[name]))
+        bounds[("K4", name)] = step_bound(
+            per_step[4].reshape(n), per_step[3].reshape(n, -1), out,
+            (*per_step[1:], qmul, out[:, 0]), dense=True)
+        dev_ms = kernel_device_ms(lambda: gop_steps(step_frames_batched, g, per_step,
+                                                    qmul, out))
+        print(f"phase 17 K4 per clip, {name} (GOP form {GOPS[name]}, {GOPS[name][1]} "
+              f"launches): kernel {times[('K4', name)][0]:.3f} ms, device time "
+              f"{dev_ms:.3f} ms, plain {times[('K4', name)][1]:.3f} ms, bound "
+              f"{bounds[('K4', name)][0]:.4f} ms ({bounds[('K4', name)][1]}) ({card})")
+        del per_step, out
+    info8, g8, deltas8, vals8, meta8 = host8
+    d8, v8 = (torch.from_numpy(a).to(dev) for a in (deltas8.view(np.int16), vals8))
+    f8 = d_refs["8K UHD"][0].shape[0]
+    _, args8, canv8 = k3_in["8K UHD"]
+    geo8 = (g8.height, g8.width, g8.ly0, g8.lcw)
+    layers = {
+        "host demux": lambda: dl.demux_host_packed(uhd),
+        "H2D deltas+vals": lambda: [torch.from_numpy(a).to(dev)
+                                    for a in (deltas8.view(np.int16), vals8)],
+        "tables": lambda: dl.block_maps(g8, *dl.upload_meta(info8, g8, meta8, dev)[:3]),
+        "densify": lambda: dl.densify_pstep(d8, v8, f8, dl.pstep_tables(g8)[2]),
+        "K3": lambda: seq_frames_dense(*args8),
+        "K2": lambda: canvas_rgba(canv8, *geo8),
+        "decode_video_yuv": lambda: dl.decode_video_yuv(uhd, dev),
+        "decode_video_rgba": lambda: dl.decode_video_rgba(uhd, dev),
+        "per-frame fallback (decode_frames)": lambda: dl.decode_frames(uhd, dev),
+    }
+    for fn in layers.values():
+        fn()
+    lt = {k: statistics.median(host_ms(fn) for _ in range(ENC_REPS))
+          for k, fn in layers.items()}
+    print(f"phase 17 8K UHD decode per clip ({f8} frames, {len(deltas8)} units, "
+          f"{deltas8.nbytes + vals8.nbytes + meta8.nbytes} bytes uploaded, dense "
+          f"coefficients {nbytes(args8[0])} bytes), layers each synchronized, median of "
+          f"{ENC_REPS}, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in lt.items())
+          + f" ({card})")
+    del k3_in, args8, canv8, d8, v8
+
+    def kernel_entry(name, source, replaces, launches, err, t, b):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+    # library_ms is null: no single PyTorch call computes any of these functions
     kernels = [
-        {"name": "step_frame", "route": "cuda",
-         "source": "pfv_torch/csrc/step_kernel.cu",
-         "replaces": "pfv_tpu/ops/pallas/step_kernel.py:596",
-         "launches": launches["K1"], "max_abs_err": err_k1,
-         "ms": times[("K1", TIMED[0])][0], "plain_ms": times[("K1", TIMED[0])][1]},
-        {"name": "canvas_rgba", "route": "cuda",
-         "source": "pfv_torch/csrc/rgba_kernel.cu",
-         "replaces": "pfv_tpu/ops/pallas/rgb_kernel.py:37",
-         "launches": launches["K2"], "max_abs_err": err_k2,
-         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
-        {"name": "idct_blocks", "route": "cuda",
-         "source": "pfv_torch/csrc/idct_kernel.cu",
-         "replaces": "pfv_tpu/ops/pallas/idct_kernel.py:59",
-         "launches": dec_launches["K5"], "max_abs_err": err_k5,
-         "ms": times["K5"][0], "plain_ms": times["K5"][1]},
-        {"name": "mc_reconstruct", "route": "cuda",
-         "source": "pfv_torch/csrc/mc_kernel.cu",
-         "replaces": "pfv_tpu/ops/pallas/mc_kernel.py:31",
-         "launches": dec_launches["K7"], "max_abs_err": err_k7,
-         "ms": times["K7"][0], "plain_ms": times["K7"][1]},
-        {"name": "fdct_quantize", "route": "cuda",
-         "source": "pfv_torch/csrc/fdct_kernel.cu",
-         "replaces": "pfv_tpu/ops/pallas/dct_kernel.py:61",
-         "launches": enc_launches["K6"], "max_abs_err": err_k6,
-         "ms": times["K6"]["delta"][0], "plain_ms": times["K6"]["delta"][1]},
+        kernel_entry("step_frame", "pfv_torch/csrc/step_kernel.cu",
+                     "pfv_tpu/ops/pallas/step_kernel.py:596", launches["K1"], err_k1,
+                     times[("K1", TIMED[0])], bounds["K1"]),
+        kernel_entry("canvas_rgba", "pfv_torch/csrc/rgba_kernel.cu",
+                     "pfv_tpu/ops/pallas/rgb_kernel.py:37", launches["K2"], err_k2,
+                     times["K2"], bounds["K2"]),
+        kernel_entry("dense_seq_frame", "pfv_torch/csrc/dense_step_kernel.cu",
+                     "pfv_tpu/ops/pallas/step_kernel.py:440", dense_launches["K3"],
+                     err_k3, times[("K3", "8K UHD")], bounds[("K3", "8K UHD")]),
+        kernel_entry("dense_step_batch", "pfv_torch/csrc/dense_step_kernel.cu",
+                     "pfv_tpu/ops/pallas/step_kernel.py:263", dense_launches["K4"],
+                     err_k4, times[("K4", "512x384")], bounds[("K4", "512x384")]),
+        kernel_entry("idct_blocks", "pfv_torch/csrc/idct_kernel.cu",
+                     "pfv_tpu/ops/pallas/idct_kernel.py:59", dec_launches["K5"], err_k5,
+                     times["K5"], bounds["K5"]),
+        kernel_entry("fdct_quantize", "pfv_torch/csrc/fdct_kernel.cu",
+                     "pfv_tpu/ops/pallas/dct_kernel.py:61", enc_launches["K6"], err_k6,
+                     times["K6"]["delta"], bounds["K6"]),
+        kernel_entry("mc_reconstruct", "pfv_torch/csrc/mc_kernel.cu",
+                     "pfv_tpu/ops/pallas/mc_kernel.py:31", dec_launches["K7"], err_k7,
+                     times["K7"], bounds["K7"]),
     ]
+    for k in kernels:
+        print(f"bound {k['name']}: {k['bound_ms']:.5f} ms ({k['bound_by']}) against "
+              f"{k['ms']:.5f} ms ({card})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

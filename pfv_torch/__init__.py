@@ -4,9 +4,9 @@ NVIDIA Hopper (sm_90a).
 Decode has two entry points: the whole-clip decode (`decode_video_yuv` and
 its RGBA, RGB and checksum forms) and the streaming `Decoder`. Encode has
 two: the streaming `Encoder` and the whole-clip `encode_video`. The JAX package
-`pfv_tpu` beside it is the reference; this package never imports jax. It
-shares the C++ entropy/container runtime with it, loaded by file path
-(`pfv_torch.runtime`).
+`pfv_tpu` beside it is the reference; this package never imports jax and
+loads nothing of `pfv_tpu`: `pfv_torch.runtime` is its own copy of the C++
+entropy/container runtime.
 """
 
 from pfv_torch.dataloader import (decode_video_checksums, decode_video_rgb,

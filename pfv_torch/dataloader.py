@@ -1,17 +1,23 @@
 """Whole-clip decode of a .pfv stream into device memory (PyTorch/CUDA).
 
-Counterpart of the units path of pfv_tpu/dataloader.py:
+Counterpart of pfv_tpu/dataloader.py. A stream takes one of four routes
+(`choose_route`), in the JAX package's order:
 
-    .pfv bytes -> shared C++ tile demux (host) -> H2D -> per-clip tables
-    -> K1 frame step, one launch per frame -> (F, chh, cw) u8 canvases
-    -> YUV views | K2 -> (F, H, W) uint32 RGBA
+  "units"  .pfv bytes -> C++ tile demux (host) -> H2D -> per-clip tables
+           -> K1 frame step, one launch per frame -> (F, chh, cw) canvases
+  "dense"  .pfv bytes -> C++ pstep demux (host) -> H2D -> densify_pstep (a
+           device scatter-add into (F, 64, row_span) coefficients) -> K3,
+           one launch per frame
+  "gops"   as "dense", but a uniform keyframe interval L and small frames:
+           G GOPs side by side, K4, one launch per step of all GOPs, L
+           launches
+  "frames" decode_frames: the streaming decoder's step (K5 + K7 per plane)
+           frame by frame, for every stream the others refuse
 
-The canvas fuses the three planes: Y at rows [0, ly0), U and V side by side
-below it, V starting at column lcw. A stream that fails one of K1's gates
-(`failed_gate`) decodes instead frame by frame, through the streaming
-decoder's step (K5 + K7 per plane, dec.FrameDecoder), into the same
-canvases; `choose_route` records which path a stream takes and why, as the
-JAX package falls back from its units path to its per-block paths. Every
+then YUV views of the canvases | K2 -> (F, H, W) uint32 RGBA. K1 takes
+every stream whose lanes fit its units (2*scp <= 1024, widths up to ~4K);
+K3 and K4 take the wider ones. The canvas fuses the three planes: Y at rows
+[0, ly0), U and V side by side below it, V starting at column lcw. Every
 public entry point takes an explicit `device` ("cuda" by default) and
 leaves its result there; a CPU device runs the kernels' plain PyTorch
 versions.
@@ -27,11 +33,15 @@ import torch
 from pfv_torch import runtime
 from pfv_torch.dec import FrameDecoder, frame_packets
 from pfv_torch.frame import Geometry, geometry, slice_yuv
+from pfv_torch.kernels.dense_step import (MAX_ROW_SPAN, seq_frames_dense,
+                                          step_frames_batched)
 from pfv_torch.kernels.rgba import canvas_rgba
 from pfv_torch.kernels.step import lanes_per_stripe, step_frames
 from pfv_torch.ops.quant import DCT_SCALE_FACTOR, INV_ZIGZAG_TABLE
 
 UNITS_CHUNK = 128  # units per chunk of the tile demux
+GOP_MAX_BLOCKS = 4096  # the GOP route takes small frames only (SD, not 1080p)
+MAX_POSITIONS = 1 << 31  # the demux's flat unit positions are int32
 
 
 def tile_tables(g: Geometry):
@@ -39,7 +49,7 @@ def tile_tables(g: Geometry):
     stream block's canvas stripe and in-stripe lane base 4*gc (Y blocks,
     then U blocks, then V blocks from lane 4*guw), and the row-major row of
     each zigzag slot."""
-    gyw, guw, gchc = g.lyw // 16, g.lcw // 16, g.lc0 // 16
+    gyw, guw = g.lyw // 16, g.lcw // 16
     r, c = np.divmod(np.arange(g.yb), gyw)
     rc, cc = np.divmod(np.arange(g.cb), guw)
     stripe = np.concatenate([r, g.gly + rc, g.gly + rc]).astype(np.int32)
@@ -49,16 +59,21 @@ def tile_tables(g: Geometry):
     return stripe, lane, r_of_zz, g.gch
 
 
-def failed_gate(g: Geometry, ftype=None, qidx=None, n_qtables: int = 0):
-    """The name of the first of K1's gates the stream fails, or None: the
-    u16 unit index fits (2*scp <= 1024; the only gate without ftype and
-    qidx, checked before the tile demux), the first frame is intra, and the
-    q-table indices are uniform per frame type with U == V. Raises
-    ValueError for a q-table index the header does not have."""
-    if lanes_per_stripe(g.cw) > 1024:
-        return "2*scp <= 1024"
-    if ftype is None:
-        return None
+def pstep_tables(g: Geometry):
+    """(off_of_b, r_of_zz, row_span) for the pstep demux: each stream
+    block's base stripe*2*scp + 4*gc in a row of the dense coefficients,
+    the row-major row of each zigzag slot, and row_span = gch*2*scp."""
+    stripe, lane, r_of_zz, gch = tile_tables(g)
+    rs = lanes_per_stripe(g.cw)
+    return (stripe * rs + lane).astype(np.int32), r_of_zz, gch * rs
+
+
+def stream_gate(ftype, qidx, n_qtables: int):
+    """The name of the first gate of the frame steps (K1, K3, K4) that the
+    stream's frame types and q-table indices fail, or None: the first frame
+    is intra, and the q-table indices are uniform per frame type with
+    U == V. Raises ValueError for a q-table index the header does not
+    have."""
     ftype = np.asarray(ftype).reshape(-1)
     qidx = np.asarray(qidx).reshape(-1, 3)
     if (qidx >= n_qtables).any():
@@ -72,31 +87,97 @@ def failed_gate(g: Geometry, ftype=None, qidx=None, n_qtables: int = 0):
     return None
 
 
+def failed_gate(g: Geometry, ftype=None, qidx=None, n_qtables: int = 0):
+    """The name of the first of K1's gates the stream fails, or None: the
+    u16 unit index fits (2*scp <= 1024; the only gate without ftype and
+    qidx, checked before the tile demux), then `stream_gate`."""
+    if lanes_per_stripe(g.cw) > 1024:
+        return "2*scp <= 1024"
+    if ftype is None:
+        return None
+    return stream_gate(ftype, qidx, n_qtables)
+
+
+def dense_gate(g: Geometry, n_frames: int):
+    """The name of the first geometry gate of the dense route (K3, K4) the
+    stream fails, or None: a row of the dense coefficients fits the pstep
+    demux's 24-bit offsets, and the clip's positions fit int32."""
+    row_span = pstep_tables(g)[2]
+    if row_span >= MAX_ROW_SPAN:
+        return "row_span < 2^24"
+    if n_frames * 64 * row_span >= MAX_POSITIONS:
+        return "F*64*row_span < 2^31"
+    return None
+
+
+def gop_shape(ftype, nb: int):
+    """(G, L) when the stream has a uniform keyframe interval L (I-frames
+    exactly at frames 0, L, 2L, ...; at least two GOPs) and frames of at
+    most GOP_MAX_BLOCKS blocks, else None. Frame-major data is then (G, L)
+    GOPs; the last is padded to L frames."""
+    ftype = np.asarray(ftype).reshape(-1)
+    f = ftype.shape[0]
+    starts = np.flatnonzero(ftype == 1)
+    if starts.size < 2 or starts[0] != 0:
+        return None
+    l = int(starts[1])
+    if not np.array_equal(starts, np.arange(0, f, l)) or nb > GOP_MAX_BLOCKS:
+        return None
+    g = -(-f // l)
+    if g * l * nb * 256 >= MAX_POSITIONS:
+        return None
+    return g, l
+
+
 class Route(NamedTuple):
-    """How a stream decodes: `gate` None -> the units path (tile demux +
-    K1), `host` holding `demux_host`'s output; else the per-frame path
-    (K5 + K7), `gate` naming the K1 gate the stream failed."""
+    """How a stream decodes. kind "units": `host` holds `demux_host`'s
+    output (K1); "dense" and "gops": `host` holds `demux_host_packed`'s
+    output, and `gops` the (G, L) of the GOP route (K4; K3 for "dense");
+    "frames": the per-frame path (K5 + K7), `gate` naming the gate the
+    stream failed."""
 
     g: Geometry
+    kind: str
     gate: str | None
     host: tuple | None
+    gops: tuple | None = None
+
+
+def _pack_meta(bh, ftype, qidx) -> np.ndarray:
+    """[block headers | ftype | qidx] as one u16 array."""
+    return np.concatenate([bh.reshape(-1), ftype.astype(np.uint16),
+                           qidx.reshape(-1).astype(np.uint16)])
+
+
+def _frame_meta(meta: np.ndarray, nb: int):
+    """The (F,) frame types and (F, 3) q-table indices of packed meta."""
+    f = meta.shape[0] // (nb + 4)
+    return meta[f * nb:f * nb + f], meta[f * nb + f:].reshape(f, 3)
 
 
 def choose_route(data: bytes, num_threads: int = 0) -> Route:
-    """Run the tile demux if the geometry allows it, then K1's gates."""
+    """Run the demux the stream's geometry allows, then the gates."""
     hdr, _ = runtime.parse_header(data)
     g = geometry(hdr["width"], hdr["height"])
-    gate = failed_gate(g)
+    nq = hdr["qtables"].shape[0]
+    if failed_gate(g) is None:
+        info, units, coff, bh, ftype, qidx = runtime.demux_file_sparse_tiles(
+            data, tile_tables(g), chunk=UNITS_CHUNK, num_threads=num_threads)
+        gate = failed_gate(g, ftype, qidx, nq)
+        if gate is not None:
+            return Route(g, "frames", gate, None)
+        return Route(g, "units", None, (info, g, units, coff,
+                                        _pack_meta(bh, ftype, qidx)))
+    gate = dense_gate(g, runtime.count_frames(data))
     if gate is not None:
-        return Route(g, gate, None)
-    info, units, coff, bh, ftype, qidx = runtime.demux_file_sparse_tiles(
-        data, tile_tables(g), chunk=UNITS_CHUNK, num_threads=num_threads)
-    gate = failed_gate(g, ftype, qidx, info["qtables"].shape[0])
+        return Route(g, "frames", gate, None)
+    host = demux_host_packed(data, num_threads)
+    ftype, qidx = _frame_meta(host[4], g.nb)
+    gate = stream_gate(ftype, qidx, nq)
     if gate is not None:
-        return Route(g, gate, None)
-    meta = np.concatenate([bh.reshape(-1), ftype.astype(np.uint16),
-                           qidx.reshape(-1).astype(np.uint16)])
-    return Route(g, None, (info, g, units, coff, meta))
+        return Route(g, "frames", gate, None)
+    gops = gop_shape(ftype, g.nb)
+    return Route(g, "dense" if gops is None else "gops", None, host, gops)
 
 
 def demux_host(data: bytes, num_threads: int = 0):
@@ -105,10 +186,25 @@ def demux_host(data: bytes, num_threads: int = 0):
     meta (F*nb + 4F,) u16 = [block headers | ftype | qidx]). Raises
     ValueError, naming the gate, for a stream K1 does not take."""
     route = choose_route(data, num_threads)
-    if route.gate is not None:
-        raise ValueError(f"gate '{route.gate}' failed for a "
+    if route.kind != "units":
+        gate = route.gate or failed_gate(route.g)
+        raise ValueError(f"gate '{gate}' failed for a "
                          f"{route.g.width}x{route.g.height} stream")
     return route.host
+
+
+def demux_host_packed(data: bytes, num_threads: int = 0):
+    """Parse and entropy-decode `data` on the host into the pstep layout:
+    (info, geometry, deltas (n,) u16, vals (n,) i8, meta (F*nb + 4F,) u16).
+    The inclusive cumsum of the deltas gives each unit's position in the
+    dense (F, 64, row_span) coefficients, the last unit parked at
+    F*64*row_span; `densify_pstep` scatter-adds the vals there. Raises
+    ValueError where the positions do not fit (`dense_gate`)."""
+    hdr, _ = runtime.parse_header(data)
+    g = geometry(hdr["width"], hdr["height"])
+    info, deltas, vals, bh, ftype, qidx = runtime.demux_file_sparse_packed(
+        data, num_threads, pstep_tables=pstep_tables(g))
+    return info, g, deltas, vals, _pack_meta(bh, ftype, qidx)
 
 
 def unpack_meta(meta: torch.Tensor, nb: int):
@@ -161,6 +257,16 @@ def dequant_multipliers(qtables, ftype, hc, qidx) -> torch.Tensor:
     return torch.stack([tables(qidx[i_idx]), tables(qidx[p_idx])])
 
 
+def upload_meta(info, g: Geometry, meta, dev):
+    """The u16 meta words -> copied to device `dev`, unpacked: (mvx, mvy,
+    hc (F, nb), ftype (F,) int32, qmul (2, 2, 64) int32)."""
+    meta_t = torch.from_numpy(meta.view(np.int16)).to(dev).to(torch.int32) & 0xFFFF
+    mvx, mvy, hc, ftype, qidx = unpack_meta(meta_t, g.nb)
+    qmul = dequant_multipliers(torch.from_numpy(info["qtables"]).to(dev),
+                               ftype, hc, qidx)
+    return mvx, mvy, hc, ftype.contiguous(), qmul
+
+
 def upload(host, device="cuda"):
     """`demux_host`'s output -> copied to `device`, with the per-clip tables
     built there: (geometry, (units, coff, dy, dx, hc, ftype, qmul)), the
@@ -169,12 +275,87 @@ def upload(host, device="cuda"):
     dev = torch.device(device)
     units_t = torch.from_numpy(units.view(np.int32)).to(dev)
     coff_t = torch.from_numpy(coff).to(dev)
-    meta_t = torch.from_numpy(meta.view(np.int16)).to(dev).to(torch.int32) & 0xFFFF
-    mvx, mvy, hc, ftype, qidx = unpack_meta(meta_t, g.nb)
+    mvx, mvy, hc, ftype, qmul = upload_meta(info, g, meta, dev)
     dy, dx, hcm = block_maps(g, mvx, mvy, hc)
-    qmul = dequant_multipliers(torch.from_numpy(info["qtables"]).to(dev),
-                               ftype, hc, qidx)
-    return g, (units_t, coff_t, dy, dx, hcm, ftype.contiguous(), qmul)
+    return g, (units_t, coff_t, dy, dx, hcm, ftype, qmul)
+
+
+def densify_pstep(deltas, vals, f: int, row_span: int) -> torch.Tensor:
+    """The pstep unit stream -> dense (f, 64, row_span) int16 coefficients.
+
+    deltas (n,) int16 (the demux's u16 deltas, widened here with & 0xFFFF)
+    and vals (n,) int8 on one device. Positions are the inclusive cumsum of
+    the deltas; each value is the scatter-add of its units. The sum runs in
+    int32 and is cut to int16, which equals an int16 add that wraps. The
+    demux parks the last unit at F*64*row_span, one past the stream's
+    frames: a sacrificial slot takes it (a pad frame does, when f > F)."""
+    total = f * 64 * row_span
+    pos = torch.cumsum(deltas.to(torch.int32) & 0xFFFF, 0, dtype=torch.int64)
+    buf = torch.zeros(total + 1, dtype=torch.int32, device=deltas.device)
+    buf.index_add_(0, pos, vals.to(torch.int32))
+    return buf[:total].to(torch.int16).view(f, 64, row_span)
+
+
+def upload_packed(host, frames: int = 0, device="cuda"):
+    """`demux_host_packed`'s output -> copied to `device` and densified:
+    (geometry, (coeffs (max(F, frames), 64, row_span) i16, mvx, mvy, hc
+    (F, nb), ftype (F,) int32, qmul (2, 2, 64) int32))."""
+    info, g, deltas, vals, meta = host
+    dev = torch.device(device)
+    mvx, mvy, hc, ftype, qmul = upload_meta(info, g, meta, dev)
+    d = torch.from_numpy(deltas.view(np.int16)).to(dev)
+    coeffs = densify_pstep(d, torch.from_numpy(vals).to(dev),
+                           max(ftype.shape[0], frames), pstep_tables(g)[2])
+    return g, (coeffs, mvx, mvy, hc, ftype, qmul)
+
+
+def _dense_canvases(host, device):
+    """The "dense" route: densify, then K3 over the clip."""
+    g, (coeffs, mvx, mvy, hc, ftype, qmul) = upload_packed(host, device=device)
+    dy, dx, hcm = block_maps(g, mvx, mvy, hc)
+    return seq_frames_dense(coeffs, dy, dx, hcm, ftype, qmul, g.chh, g.cw, g.gly)
+
+
+def upload_gops(host, n_gops: int, gop_len: int, device="cuda"):
+    """`demux_host_packed`'s output -> K4's inputs for G GOPs of L frames:
+    (geometry, F, (coeffs, dy, dx, hc, ftype) each (G, L, ...), qmul).
+    The G*L frames are densified, the last GOP padded with all-skip
+    P-frames (ftype 2, mv 0, hc 0); the multipliers come from the unpadded
+    frames. Raises ValueError unless every GOP opens with an I-frame and
+    the last one holds a frame."""
+    ftype_h = _frame_meta(host[4], host[1].nb)[0]
+    f, n = ftype_h.shape[0], n_gops * gop_len
+    if not (n_gops > 0 and gop_len > 0 and n - gop_len < f <= n):
+        raise ValueError(f"{n_gops} GOPs of {gop_len} frames do not hold {f} frames")
+    if (ftype_h[::gop_len] != 1).any():
+        raise ValueError(f"a GOP of {gop_len} frames does not open with an I-frame")
+    g, (coeffs, mvx, mvy, hc, ftype, qmul) = upload_packed(host, n, device)
+    pad = n - f
+
+    def padded(t, fill):
+        return torch.cat([t, torch.full((pad,) + t.shape[1:], fill, dtype=t.dtype,
+                                        device=t.device)])
+
+    maps = block_maps(g, padded(mvx, 0), padded(mvy, 0), padded(hc, 0))
+    per_step = (coeffs.view(n_gops, gop_len, 64, -1),
+                *(m.view(n_gops, gop_len, g.gch, g.gcw) for m in maps),
+                padded(ftype, 2).view(n_gops, gop_len))
+    return g, f, per_step, qmul
+
+
+def _gops_canvases(host, n_gops: int, gop_len: int, device):
+    """The "gops" route: L launches of K4, step l decoding frame l of every
+    GOP from frame l-1 of the same GOP; the canvases un-stacked and cut to
+    F."""
+    g, f, per_step, qmul = upload_gops(host, n_gops, gop_len, device)
+    out = torch.empty((n_gops, gop_len, g.chh, g.cw), dtype=torch.uint8,
+                      device=qmul.device)
+    prev = torch.zeros((n_gops, g.chh, g.cw), dtype=torch.uint8, device=qmul.device)
+    for step in range(gop_len):
+        step_frames_batched(prev, *(t[:, step] for t in per_step), qmul, g.chh,
+                            g.cw, g.gly, out=out[:, step])
+        prev = out[:, step]
+    return out.view(n_gops * gop_len, g.chh, g.cw)[:f]
 
 
 def decode_frames(data: bytes, device="cuda"):
@@ -198,28 +379,55 @@ def decode_frames(data: bytes, device="cuda"):
 
 
 def decode_canvases(data: bytes, device="cuda", num_threads: int = 0):
-    """Decode a whole stream -> (geometry, (F, chh, cw) u8 canvases): by
-    the units path (K1) where `choose_route` allows, else `decode_frames`."""
+    """Decode a whole stream -> (geometry, (F, chh, cw) u8 canvases) by the
+    route `choose_route` picks."""
     route = choose_route(data, num_threads)
-    if route.gate is not None:
-        return decode_frames(data, device)
-    g, args = upload(route.host, device)
-    return g, step_frames(*args, g.chh, g.cw, g.gly)
+    if route.kind == "units":
+        g, args = upload(route.host, device)
+        return g, step_frames(*args, g.chh, g.cw, g.gly)
+    if route.kind == "gops":
+        return route.g, _gops_canvases(route.host, *route.gops, device)
+    if route.kind == "dense":
+        return route.g, _dense_canvases(route.host, device)
+    return decode_frames(data, device)
+
+
+def _output(g: Geometry, canvases, want: str):
+    """Decode canvases -> the output `want` names."""
+    if want not in ("yuv", "rgb", "rgba", "checksums"):
+        raise ValueError(f"unknown output '{want}'")
+    if want == "yuv":
+        return slice_yuv(g, canvases)
+    if want == "checksums":
+        return plane_checksums(*slice_yuv(g, canvases))
+    rgba = canvas_rgba(canvases, g.height, g.width, g.ly0, g.lcw)
+    return rgba if want == "rgba" else rgba_view(rgba)[..., :3]
+
+
+def decode_packed_gops(host, g: int, l: int, want: str = "rgb", device="cuda"):
+    """Decode `demux_host_packed`'s output as g GOPs of l frames side by
+    side (K4, one launch per step: l launches) -> `want`: "yuv" (Y, U, V
+    views), "rgb" (F, H, W, 3) u8, "rgba" (F, H, W) uint32 (K2) or
+    "checksums" (F, 3). The stream must pass `stream_gate`, open a GOP with
+    an I-frame every l frames, and fill the last GOP."""
+    info, geo, _, _, meta = host
+    gate = stream_gate(*_frame_meta(meta, geo.nb), info["qtables"].shape[0])
+    if gate is not None:
+        raise ValueError(f"gate '{gate}' failed for a {geo.width}x{geo.height} stream")
+    return _output(geo, _gops_canvases(host, g, l, device), want)
 
 
 def decode_video_yuv(data: bytes, device="cuda", num_threads: int = 0):
     """Decode a whole .pfv stream to unpadded (Y, U, V) u8 tensors, views
     of the decode canvases on `device`."""
-    g, canvases = decode_canvases(data, device, num_threads)
-    return slice_yuv(g, canvases)
+    return _output(*decode_canvases(data, device, num_threads), "yuv")
 
 
 def decode_video_rgba(data: bytes, device="cuda",
                       num_threads: int = 0) -> torch.Tensor:
     """Decode a whole .pfv stream to (F, H, W) uint32 packed RGBA (bytes R,
     G, B, A=255 in memory order; `rgba_view` gives the channels)."""
-    g, canvases = decode_canvases(data, device, num_threads)
-    return canvas_rgba(canvases, g.height, g.width, g.ly0, g.lcw)
+    return _output(*decode_canvases(data, device, num_threads), "rgba")
 
 
 def rgba_view(rgba: torch.Tensor) -> torch.Tensor:
@@ -230,7 +438,7 @@ def rgba_view(rgba: torch.Tensor) -> torch.Tensor:
 def decode_video_rgb(data: bytes, device="cuda",
                      num_threads: int = 0) -> torch.Tensor:
     """Decode a whole .pfv stream to a (F, H, W, 3) u8 RGB view."""
-    return rgba_view(decode_video_rgba(data, device, num_threads))[..., :3]
+    return _output(*decode_canvases(data, device, num_threads), "rgb")
 
 
 def plane_checksums(y, u, v) -> torch.Tensor:
@@ -249,4 +457,4 @@ def plane_checksums(y, u, v) -> torch.Tensor:
 def decode_video_checksums(data: bytes, device="cuda",
                            num_threads: int = 0) -> torch.Tensor:
     """Decode and return only the (F, 3) plane checksums, on `device`."""
-    return plane_checksums(*decode_video_yuv(data, device, num_threads))
+    return _output(*decode_canvases(data, device, num_threads), "checksums")

@@ -104,6 +104,26 @@ def _predict(prev, dy, dx) -> torch.Tensor:
     return torch.where(inside, prev.reshape(-1)[src].to(torch.int32), 0)
 
 
+def reconstruct(coef, qmul, gly: int, intra: bool, prev, dy, dx,
+                hc) -> torch.Tensor:
+    """One frame of the plain frame steps: (gch, 64, 2*scp) int32
+    coefficients of each stripe, the (gch, gcw) maps and the previous
+    (chh, cw) canvas (None reads as zeros) -> the (chh, cw) u8 canvas."""
+    gch = coef.shape[0]
+    cw = dy.shape[1] * 16
+    region = (torch.arange(gch, device=coef.device) >= gly).long()
+    qrows = qmul[0 if intra else 1][region][:, :, None]
+    res = _residual(coef, qrows, cw)
+    if intra:
+        return res.to(torch.uint8)
+    if prev is None:
+        prev = torch.zeros((gch * 16, cw), dtype=torch.uint8, device=coef.device)
+    pred = _predict(prev, dy.long(), dx.long())
+    coded = hc.repeat_interleave(16, 0).repeat_interleave(16, 1) != 0
+    inter = torch.clamp(pred + (res - 128) * 2, 0, 255)
+    return torch.where(coded, inter, pred).to(torch.uint8)
+
+
 def step_frames_plain(units, coff, dy, dx, hc, ftype, qmul, chh: int, cw: int,
                       gly: int) -> torch.Tensor:
     """The plain PyTorch version of `step_frames`, frame by frame."""
@@ -114,10 +134,8 @@ def step_frames_plain(units, coff, dy, dx, hc, ftype, qmul, chh: int, cw: int,
     chunk = units.shape[1]
     coff_h = coff.tolist()
     ftype_h = ftype.tolist()
-    region = (torch.arange(gch, device=dev) >= gly).long()
     out = torch.empty((nf, chh, cw), dtype=torch.uint8, device=dev)
     for f in range(nf):
-        intra = ftype_h[f] == 1
         a, b = coff_h[f * gch], coff_h[(f + 1) * gch]
         words = units[a:b].reshape(-1)
         per_tile = coff[f * gch + 1:(f + 1) * gch + 1] - coff[f * gch:(f + 1) * gch]
@@ -128,14 +146,6 @@ def step_frames_plain(units, coff, dy, dx, hc, ftype, qmul, chh: int, cw: int,
         pos = (tile * 64 + (idx >> 10)) * lanes + (idx & 1023)
         coef = torch.zeros(gch * 64 * lanes, dtype=torch.int32, device=dev)
         coef.index_add_(0, pos, val)
-        qrows = qmul[0 if intra else 1][region][:, :, None]
-        res = _residual(coef.view(gch, 64, lanes), qrows, cw)
-        if intra:
-            out[f] = res.to(torch.uint8)
-            continue
-        prev = out[f - 1] if f else torch.zeros_like(out[0])
-        pred = _predict(prev, dy[f].long(), dx[f].long())
-        coded = hc[f].repeat_interleave(16, 0).repeat_interleave(16, 1) != 0
-        inter = torch.clamp(pred + (res - 128) * 2, 0, 255)
-        out[f] = torch.where(coded, inter, pred).to(torch.uint8)
+        out[f] = reconstruct(coef.view(gch, 64, lanes), qmul, gly, ftype_h[f] == 1,
+                             out[f - 1] if f else None, dy[f], dx[f], hc[f])
     return out

@@ -1,0 +1,428 @@
+"""The port's own copy of the C++ entropy/container runtime.
+
+`native/pfv_bitstream.cpp` is the PFV bitstream layer (Huffman/RLE payload
+coding, the container, every demux form, the scalar reference decoder),
+kept byte for byte equal to the JAX package's copy; this module binds the
+part of it the port uses through ctypes with numpy-array views.
+
+The library is compiled with g++ at first use into `pfv_torch/build/`
+(which git ignores), under a name keyed by the source, the flags and the
+instruction set `-march=native` resolves to on this host: a library built
+on another machine with other CPU features is never loaded, and a changed
+source is rebuilt.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC_PATH = os.path.join(_HERE, "native", "pfv_bitstream.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
+# -O2 measures equal-or-faster than -O3 on the branchy bit-twiddling loops
+CXX_FLAGS = ["-O2", "-march=native", "-fPIC", "-std=c++17", "-shared", "-pthread"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def so_path() -> str:
+    """Where the library for this source, these flags and this host's
+    `-march=native` lives."""
+    target = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                            check=True, capture_output=True, text=True).stdout
+    key = hashlib.sha256()
+    for part in (open(_SRC_PATH, "rb").read(), " ".join(CXX_FLAGS).encode(),
+                 target.encode()):
+        key.update(hashlib.sha256(part).digest())
+    return os.path.join(BUILD_DIR, f"libpfv_bitstream-{key.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        so = os.path.join(tmp, "lib.so")
+        subprocess.run(["g++", *CXX_FLAGS, "-o", so, _SRC_PATH], check=True,
+                       capture_output=True)
+        os.replace(so, path)  # atomic: another process never loads half a file
+
+
+def get_lib() -> ctypes.CDLL:
+    """Load the native bitstream library, building it first if missing."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = so_path()
+        if not os.path.exists(path):
+            _build(path)
+        lib = ctypes.CDLL(path)
+
+        i64 = ctypes.c_int64
+        vp = ctypes.c_void_p
+        p_i16 = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+        p_i8 = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+        p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        p_u16 = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+        p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+
+        lib.pfv_encode_iframe_payload.restype = i64
+        lib.pfv_encode_iframe_payload.argtypes = [p_i16, i64, p_u8, p_u8, i64]
+        lib.pfv_decode_iframe_payload.restype = i64
+        lib.pfv_decode_iframe_payload.argtypes = [p_u8, i64, i64, p_i16, p_u8]
+        lib.pfv_encode_iframe_payload_sparse.restype = i64
+        lib.pfv_encode_iframe_payload_sparse.argtypes = [
+            p_i32, p_i16, i64, i64, p_u8, p_u8, i64]
+        lib.pfv_encode_pframe_payload_sparse.restype = i64
+        lib.pfv_encode_pframe_payload_sparse.argtypes = [
+            p_i32, p_i16, i64, p_i8, p_i8, p_u8, i64, p_u8, p_u8, i64]
+        lib.pfv_encode_pframe_payload.restype = i64
+        lib.pfv_encode_pframe_payload.argtypes = [
+            p_i16, p_i8, p_i8, p_u8, i64, p_u8, p_u8, i64]
+        lib.pfv_decode_pframe_payload.restype = i64
+        lib.pfv_decode_pframe_payload.argtypes = [
+            p_u8, i64, i64, p_i16, p_i8, p_i8, p_u8, p_u8]
+        lib.pfv_parse_header.restype = i64
+        lib.pfv_parse_header.argtypes = [p_u8, i64, p_i32, p_i32, i64]
+        lib.pfv_ref_decode.restype = i64
+        lib.pfv_ref_decode.argtypes = [p_u8, i64, vp, vp, vp, i64, p_i32]
+        lib.pfv_count_frames.restype = i64
+        lib.pfv_count_frames.argtypes = [p_u8, i64, i64]
+        lib.pfv_demux_file_sparse.restype = i64
+        lib.pfv_demux_file_sparse.argtypes = [
+            p_u8, i64, i64, i64, i64, p_u16, vp, p_u8, p_u8, vp, vp, i64, vp,
+            ctypes.c_int32]
+        lib.pfv_demux_file_sparse_pstep.restype = i64
+        lib.pfv_demux_file_sparse_pstep.argtypes = [
+            p_u8, i64, i64, i64, i64, p_u16, vp, p_u8, p_u8, vp, vp, i64, vp,
+            ctypes.c_int32, p_i32, p_i32, i64, i64]
+        lib.pfv_demux_file_sparse_tiles.restype = i64
+        lib.pfv_demux_file_sparse_tiles.argtypes = [
+            p_u8, i64, i64, i64, i64, p_u16, vp, p_u8, p_u8, vp, i64, p_i32,
+            i64, vp, ctypes.c_int32, p_i32, p_i32, p_i32, i64]
+        _lib = lib
+        return _lib
+
+
+def _grow(payload_coder, *args) -> bytes:
+    """Run an encoder that returns -1 while its buffer is too small (deep
+    Huffman codes), doubling the buffer until it fits."""
+    cap = args[-1]
+    while True:
+        out = np.empty(cap, dtype=np.uint8)
+        n = payload_coder(*args[:-1], out, cap)
+        if n >= 0:
+            return out[:n].tobytes()
+        if n != -1:
+            raise ValueError(f"unencodable coefficients (code {n})")
+        cap *= 2
+
+
+def encode_iframe_payload(coeffs: np.ndarray, qidx) -> bytes:
+    """coeffs: (total_blocks, 256) int16 zigzag coefficients -> payload bytes."""
+    coeffs = np.ascontiguousarray(coeffs, dtype=np.int16)
+    return _grow(get_lib().pfv_encode_iframe_payload, coeffs.reshape(-1),
+                 coeffs.shape[0], np.asarray(qidx, dtype=np.uint8),
+                 coeffs.size * 4 + 1024)
+
+
+def decode_iframe_payload(payload: bytes, total_blocks: int):
+    """payload -> ((total_blocks, 256) int16 coeffs, (3,) uint8 q-table idx)."""
+    buf = np.frombuffer(payload, dtype=np.uint8)
+    coeffs = np.empty(total_blocks * 256, dtype=np.int16)
+    qidx = np.empty(3, dtype=np.uint8)
+    rc = get_lib().pfv_decode_iframe_payload(buf, len(payload), total_blocks * 4,
+                                             coeffs, qidx)
+    if rc != 0:
+        raise ValueError(f"corrupt I-frame payload (code {rc})")
+    return coeffs.reshape(total_blocks, 256), qidx
+
+
+def encode_iframe_payload_sparse(idx, val, total_blocks: int, qidx) -> bytes:
+    """Sparse frame coefficients (sorted frame-local flat idx, nonzero val)
+    -> I-frame payload bytes, byte-identical to the dense encoder."""
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    val = np.ascontiguousarray(val, dtype=np.int16)
+    return _grow(get_lib().pfv_encode_iframe_payload_sparse, idx, val,
+                 idx.shape[0], total_blocks, np.asarray(qidx, dtype=np.uint8),
+                 idx.shape[0] * 8 + total_blocks * 48 + 1024)
+
+
+def encode_pframe_payload_sparse(idx, val, mvx, mvy, has_coeff, qidx) -> bytes:
+    """Sparse twin of encode_pframe_payload (entries in skipped blocks are
+    ignored, as the dense encoder never reads them)."""
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    val = np.ascontiguousarray(val, dtype=np.int16)
+    total_blocks = mvx.shape[0]
+    return _grow(get_lib().pfv_encode_pframe_payload_sparse, idx, val,
+                 idx.shape[0], np.ascontiguousarray(mvx, dtype=np.int8),
+                 np.ascontiguousarray(mvy, dtype=np.int8),
+                 np.ascontiguousarray(has_coeff, dtype=np.uint8), total_blocks,
+                 np.asarray(qidx, dtype=np.uint8),
+                 idx.shape[0] * 8 + total_blocks * 48 + 1024)
+
+
+def encode_pframe_payload(coeffs, mvx, mvy, has_coeff, qidx) -> bytes:
+    """Dense per-block arrays -> P-frame payload bytes."""
+    coeffs = np.ascontiguousarray(coeffs, dtype=np.int16)
+    total_blocks = coeffs.shape[0]
+    return _grow(get_lib().pfv_encode_pframe_payload, coeffs.reshape(-1),
+                 np.ascontiguousarray(mvx, dtype=np.int8),
+                 np.ascontiguousarray(mvy, dtype=np.int8),
+                 np.ascontiguousarray(has_coeff, dtype=np.uint8), total_blocks,
+                 np.asarray(qidx, dtype=np.uint8),
+                 coeffs.size * 4 + 16 * total_blocks + 1024)
+
+
+def decode_pframe_payload(payload: bytes, total_blocks: int):
+    """payload -> (coeffs (N,256) i16, mvx (N,) i8, mvy (N,) i8,
+    has_coeff (N,) u8, qidx (3,) u8)."""
+    buf = np.frombuffer(payload, dtype=np.uint8)
+    coeffs = np.empty(total_blocks * 256, dtype=np.int16)
+    mvx = np.empty(total_blocks, dtype=np.int8)
+    mvy = np.empty(total_blocks, dtype=np.int8)
+    has_coeff = np.empty(total_blocks, dtype=np.uint8)
+    qidx = np.empty(3, dtype=np.uint8)
+    rc = get_lib().pfv_decode_pframe_payload(buf, len(payload), total_blocks,
+                                             coeffs, mvx, mvy, has_coeff, qidx)
+    if rc != 0:
+        raise ValueError(f"corrupt P-frame payload (code {rc})")
+    return coeffs.reshape(total_blocks, 256), mvx, mvy, has_coeff, qidx
+
+
+def _pad16(x: int) -> int:
+    return x + (16 - x % 16) % 16
+
+
+def _plane_dims(info: dict):
+    """(luma, chroma) padded plane shapes and (yb, cb) block counts."""
+    w, h = info["width"], info["height"]
+    ly = (_pad16(h), _pad16(w))
+    lc = (_pad16(h // 2), _pad16(w // 2))
+    return ly, lc, (ly[0] // 16) * (ly[1] // 16), (lc[0] // 16) * (lc[1] // 16)
+
+
+def _mv_bounds(ly, lc):
+    """Per-block legal motion ranges (lox, hix, loy, hiy) over the
+    concatenated Y, U, V blocks, clipped into int8 (stream motion components
+    are 7-bit, so a clipped bound is never the one violated)."""
+
+    def plane(ph, pw):
+        b = np.arange((ph // 16) * (pw // 16))
+        by, bx = (b // (pw // 16)) * 16, (b % (pw // 16)) * 16
+        return -bx, pw - 16 - bx, -by, ph - 16 - by
+
+    parts = [plane(*ly), plane(*lc), plane(*lc)]
+    return tuple(np.clip(np.concatenate([p[i] for p in parts]), -64, 63)
+                 .astype(np.int8) for i in range(4))
+
+
+def validate_motion(mvx, mvy, ly, lc) -> None:
+    """Reject motion vectors whose 16x16 prediction window leaves the padded
+    plane (the reference panics on such streams). mvx/mvy: (..., B) int8
+    over the concatenated Y, U, V blocks."""
+    lox, hix, loy, hiy = _mv_bounds(tuple(ly), tuple(lc))
+    if ((mvx < lox).any() or (mvx > hix).any()
+            or (mvy < loy).any() or (mvy > hiy).any()):
+        raise ValueError("corrupt P-frame payload: motion vector out of bounds")
+
+
+def _mv_bounds_packed(ly, lc) -> np.ndarray:
+    """Per-block packed int8 motion bounds lox | hix << 8 | loy << 16 |
+    hiy << 24 for the native validation in the sparse demuxes."""
+    lox, hix, loy, hiy = (b.view(np.uint8).astype(np.uint32)
+                          for b in _mv_bounds(ly, lc))
+    return (lox | (hix << 8) | (loy << 16) | (hiy << 24)).view(np.int32)
+
+
+def parse_header(data: bytes):
+    """Parse a PFV header -> (info dict, first-packet byte offset)."""
+    buf = np.frombuffer(data, dtype=np.uint8)
+    dims = np.zeros(4, dtype=np.int32)
+    # the format carries a u16 table count and the reference keeps them all
+    nq_guess = int.from_bytes(data[18:20], "little") if len(data) >= 20 else 0
+    qtables = np.zeros(max(nq_guess, 1) * 64, dtype=np.int32)
+    off = get_lib().pfv_parse_header(buf, len(data), dims, qtables, qtables.size)
+    if off < 0:
+        raise ValueError(f"bad PFV header (code {off})")
+    nq = int(dims[3])
+    info = {"width": int(dims[0]), "height": int(dims[1]),
+            "framerate": int(dims[2]),
+            "qtables": qtables[: nq * 64].reshape(nq, 64).copy()}
+    return info, int(off)
+
+
+def count_frames(data: bytes) -> int:
+    """The number of frames the stream emits (drop frames and unknown
+    packets emit none)."""
+    _, off = parse_header(data)
+    nf = get_lib().pfv_count_frames(np.frombuffer(data, dtype=np.uint8),
+                                    len(data), off)
+    if nf < 0:
+        raise ValueError(f"corrupt packet stream (code {nf})")
+    return int(nf)
+
+
+def demux_file_sparse_packed(data: bytes, num_threads: int = 0,
+                             pad_to_multiple: int = 1, pstep_tables=None):
+    """Sparse whole-file demux, device-upload form.
+
+    Returns (info, deltas (n,) u16, vals (n,) i8, bh (F, B) u16,
+    ftype (F,) u8, qidx (F, 3) u8):
+    - deltas chain the flat position through an inclusive cumsum; the
+      dense value at a position is the scatter-ADD of its units' vals
+      (|v| > 127 spans several same-position units; zero-value units are
+      no-ops). The final unit parks the position at F*span, one past the
+      end; with pad_to_multiple > 1 the arrays are padded with zero units.
+    - bh packs each block's header as (mvx & 127) | (mvy & 127) << 7 |
+      has_coeff << 14.
+    Without pstep_tables the position is (frame * B + block) * 256 + slot
+    (span B*256). pstep_tables = (off_of_b (B,) i32, r_of_zz (64,) i32,
+    row_span) chains it through the step kernel's dense coefficient space
+    (frame, row r, stripe, lane), rows unzigzagged (span 64*row_span).
+    F*span must be < 2^31 and row_span < 2^24. Motion vectors are
+    bounds-validated natively."""
+    lib = get_lib()
+    info, off = parse_header(data)
+    ly, lc, yb, cb = _plane_dims(info)
+    total_blocks = yb + 2 * cb
+    buf = np.frombuffer(data, dtype=np.uint8)
+    nf = lib.pfv_count_frames(buf, len(data), off)
+    if nf < 0:
+        raise ValueError(f"corrupt packet stream (code {nf})")
+    span = total_blocks * 256 if pstep_tables is None else 64 * int(pstep_tables[2])
+    if nf * span >= 2**31:
+        raise ValueError("video too large for sparse flat indexing; chunk it")
+    # worst case 69 units per payload byte and 129 per coefficient slot,
+    # plus gap escapes and per-frame tails (the native side enforces
+    # per-frame caps); only the decoded prefix is ever touched
+    cap = (min(69 * len(data), 129 * nf * span) + nf * (span // 65535 + 1)
+           + 8 * nf + 1024 + pad_to_multiple)
+    bh = np.empty((nf, total_blocks), dtype=np.uint16)
+    ftype = np.empty(nf, dtype=np.uint8)
+    qidx = np.empty((nf, 3), dtype=np.uint8)
+    deltas = np.empty(cap, dtype=np.uint16)
+    vals = np.empty(cap, dtype=np.int8)
+    bounds = _mv_bounds_packed(ly, lc)
+    mv_absmax = np.zeros(1, dtype=np.int16)
+    common = (buf, len(data), off, total_blocks, nf, bh.reshape(-1),
+              bounds.ctypes.data_as(ctypes.c_void_p), ftype, qidx.reshape(-1),
+              deltas.ctypes.data_as(ctypes.c_void_p),
+              vals.ctypes.data_as(ctypes.c_void_p), cap,
+              mv_absmax.ctypes.data_as(ctypes.c_void_p), num_threads)
+    if pstep_tables is not None:
+        off_of_b, r_of_zz, row_span = pstep_tables
+        if row_span >= 1 << 24:
+            raise ValueError("geometry too wide for pstep unit layout")
+        nunits = lib.pfv_demux_file_sparse_pstep(
+            *common, np.ascontiguousarray(off_of_b, dtype=np.int32),
+            np.ascontiguousarray(r_of_zz, dtype=np.int32), row_span, yb + cb)
+    else:
+        nunits = lib.pfv_demux_file_sparse(*common)
+    if nunits == -8:
+        raise ValueError("corrupt P-frame payload: motion vector out of bounds")
+    if nunits < 0:
+        raise ValueError(f"sparse demux failed (code {nunits})")
+    info["yb"], info["cb"], info["total_blocks"] = yb, cb, total_blocks
+    info["mv_absmax"] = int(mv_absmax[0])
+    info["unit_layout"] = "pstep" if pstep_tables is not None else "stream"
+    m = pad_to_multiple
+    padded = ((nunits + m - 1) // m) * m if m > 1 else nunits
+    deltas[nunits:padded] = 0
+    vals[nunits:padded] = 0
+    return info, deltas[:padded], vals[:padded], bh, ftype, qidx
+
+
+def demux_file_sparse_tiles(data: bytes, tile_tables, chunk: int = 128,
+                            num_threads: int = 0):
+    """Tile-bucketed unit demux for the frame step's in-kernel densify.
+
+    Units are grouped per (frame, stripe) tile in zero-padded chunks of
+    `chunk`: units (n_chunks, chunk) u32 packs one unit per word,
+    idx << 16 | (u16)(i16)val, idx = dense row r << 10 | lane (lane < 1024),
+    val the sign-extended i8 addend (|v| > 127 spans several same-position
+    units, in no set order). Chunk k of tile t = frame*gch + stripe lives at
+    rows coff[t] <= k < coff[t+1]; padding words (idx 0, val 0) are no-ops.
+
+    tile_tables = (stripe_of_b (B,) i32, lanebase_of_b (B,) i32,
+    r_of_zz (64,) i32, gch). Returns (info, units, coff (F*gch + 1,) i32,
+    bh (F, B) u16, ftype (F,) u8, qidx (F, 3) u8)."""
+    lib = get_lib()
+    info, off = parse_header(data)
+    ly, lc, yb, cb = _plane_dims(info)
+    total_blocks = yb + 2 * cb
+    stripe_of_b, lanebase_of_b, r_of_zz, gch = tile_tables
+    buf = np.frombuffer(data, dtype=np.uint8)
+    nf = lib.pfv_count_frames(buf, len(data), off)
+    if nf < 0:
+        raise ValueError(f"corrupt packet stream (code {nf})")
+    # the per-frame unit bound of the sparse demux, plus one short chunk
+    # per tile
+    cap_chunks = (min(69 * len(data), 129 * total_blocks * 256 * nf) // chunk
+                  + nf * (gch + 1) + 64)
+    bh = np.empty((nf, total_blocks), dtype=np.uint16)
+    ftype = np.empty(nf, dtype=np.uint8)
+    qidx = np.empty((nf, 3), dtype=np.uint8)
+    units = np.empty((cap_chunks, chunk), dtype=np.uint32)
+    coff = np.empty(nf * gch + 1, dtype=np.int32)
+    bounds = _mv_bounds_packed(ly, lc)
+    mv_absmax = np.zeros(1, dtype=np.int16)
+    nchunks = lib.pfv_demux_file_sparse_tiles(
+        buf, len(data), off, total_blocks, nf, bh.reshape(-1),
+        bounds.ctypes.data_as(ctypes.c_void_p), ftype, qidx.reshape(-1),
+        units.ctypes.data_as(ctypes.c_void_p), cap_chunks, coff, chunk,
+        mv_absmax.ctypes.data_as(ctypes.c_void_p), num_threads,
+        np.ascontiguousarray(stripe_of_b, dtype=np.int32),
+        np.ascontiguousarray(lanebase_of_b, dtype=np.int32),
+        np.ascontiguousarray(r_of_zz, dtype=np.int32), gch)
+    if nchunks == -8:
+        raise ValueError("corrupt P-frame payload: motion vector out of bounds")
+    if nchunks < 0:
+        raise ValueError(f"tile demux failed (code {nchunks})")
+    info["yb"], info["cb"], info["total_blocks"] = yb, cb, total_blocks
+    info["mv_absmax"] = int(mv_absmax[0])
+    info["unit_layout"] = "tiles"
+    return info, units[:nchunks], coff, bh, ftype, qidx
+
+
+def ref_decode(data: bytes, emit: bool = True, max_frames: int = 1 << 30):
+    """Scalar single-core decode of a whole .pfv buffer (the oracle).
+
+    Returns (num_frames, Y (F,h,w) u8 | None, U, V, info)."""
+    lib = get_lib()
+    info, off = parse_header(data)
+    w, h = info["width"], info["height"]
+    buf = np.frombuffer(data, dtype=np.uint8)
+    dims = np.zeros(4, dtype=np.int32)
+    if not emit:
+        n = lib.pfv_ref_decode(buf, len(data), None, None, None, 0, dims)
+        if n < 0:
+            raise ValueError(f"ref decode failed (code {n})")
+        return int(n), None, None, None, info
+    exact = int(lib.pfv_count_frames(buf, len(data), off))
+    if exact < 0:
+        raise ValueError(f"corrupt packet stream (code {exact})")
+    cap = min(max_frames, exact)
+    y = np.empty((cap, h, w), dtype=np.uint8)
+    u = np.empty((cap, h // 2, w // 2), dtype=np.uint8)
+    v = np.empty((cap, h // 2, w // 2), dtype=np.uint8)
+    n = lib.pfv_ref_decode(buf, len(data), y.ctypes.data_as(ctypes.c_void_p),
+                           u.ctypes.data_as(ctypes.c_void_p),
+                           v.ctypes.data_as(ctypes.c_void_p), cap, dims)
+    if n < 0:
+        raise ValueError(f"ref decode failed (code {n})")
+    return int(n), y[:n], u[:n], v[:n], info
+
+
+__all__ = ["count_frames", "decode_iframe_payload", "decode_pframe_payload",
+           "demux_file_sparse_packed", "demux_file_sparse_tiles",
+           "encode_iframe_payload", "encode_iframe_payload_sparse",
+           "encode_pframe_payload", "encode_pframe_payload_sparse",
+           "get_lib", "parse_header", "ref_decode", "validate_motion"]

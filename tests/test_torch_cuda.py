@@ -1,7 +1,7 @@
 """Tests that need a CUDA card: each hand-written kernel against its plain
-PyTorch version on the card, the decode (whole-clip, its per-frame
-fallback, the streaming Decoder) against the scalar reference, and the
-encode on the card against the encode on the CPU.
+PyTorch version on the card, the decode (whole-clip by each route, the
+streaming Decoder) against the scalar reference, and the encode on the card
+against the encode on the CPU.
 They skip without a card. They need no JAX; where it is not installed,
 skip tests/conftest.py (which imports it):
 
@@ -19,8 +19,11 @@ import torch
 
 from pfv_torch import dataloader as tdl
 from pfv_torch import runtime, synth
-from pfv_torch.dec import Decoder
+from pfv_torch.dec import Decoder, split_packets
 from pfv_torch.encoding import encode_video
+from pfv_torch.kernels.dense_step import (seq_frames_dense, seq_frames_dense_plain,
+                                          step_frames_batched,
+                                          step_frames_batched_plain)
 from pfv_torch.kernels.fdct import fdct_blocks, fdct_blocks_plain
 from pfv_torch.kernels.idct import decode_blocks, decode_blocks_plain
 from pfv_torch.kernels.mc import mc_reconstruct, mc_reconstruct_plain
@@ -131,11 +134,13 @@ def test_decoder_matches_reference(cuda, path):
 
 
 def test_fallback_stream_runs_k5_k7_and_not_k1(cuda):
-    data = synth.random_stream(4112, 32, 3, seed=12)
-    assert tdl.choose_route(data).gate == "2*scp <= 1024"
-    before = (step_frames.launches, decode_blocks.launches)
+    info, packets = split_packets(synth.random_stream(4112, 32, 4, seed=12))
+    data = synth.container(4112, 32, info["qtables"], packets[1:])
+    assert tdl.choose_route(data).gate == "first frame is intra"
+    before = (step_frames.launches, decode_blocks.launches, seq_frames_dense.launches)
     y, u, v = tdl.decode_video_yuv(data, device="cuda")
     assert step_frames.launches == before[0]
+    assert seq_frames_dense.launches == before[2]
     assert decode_blocks.launches - before[1] == 9
     for p, r in zip((y, u, v), runtime.ref_decode(data)[1:4]):
         assert np.array_equal(p.cpu().numpy(), r)
@@ -187,3 +192,53 @@ def test_fdct_kernel_raises_on_mixed_devices(cuda):
     with pytest.raises(ValueError):
         fdct_blocks(blocks, torch.ones(64, dtype=torch.int32, device=cuda),
                     torch.zeros((4, 16, 16), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("source", ["4112x64", CLIPS[0]])
+def test_k3_matches_plain_and_reference(cuda, source):
+    if source == "4112x64":
+        data = synth.random_stream(4112, 64, 5, seed=31)
+    else:
+        data = open(os.path.join(ROOT, source), "rb").read()
+    g, (coeffs, mvx, mvy, hc, ftype, qmul) = tdl.upload_packed(
+        tdl.demux_host_packed(data), device=cuda)
+    args = (coeffs, *tdl.block_maps(g, mvx, mvy, hc), ftype, qmul, g.chh, g.cw, g.gly)
+    before = seq_frames_dense.launches
+    got = seq_frames_dense(*args)
+    assert seq_frames_dense.launches - before == ftype.shape[0]
+    assert torch.equal(got, seq_frames_dense_plain(*args))
+    for p, r in zip(tdl.slice_yuv(g, got), runtime.ref_decode(data)[1:4]):
+        assert np.array_equal(p.cpu().numpy(), r)
+
+
+def test_k4_matches_plain_over_gops(cuda):
+    data = synth.random_stream(4112, 64, 7, seed=32, keyframes=3)
+    route = tdl.choose_route(data)
+    assert (route.kind, route.gops) == ("gops", (3, 3))
+    g, f, per_step, qmul = tdl.upload_gops(route.host, 3, 3, cuda)
+    assert f == 7 and per_step[4][2].tolist() == [1, 2, 2]
+    prev = torch.randint(0, 256, (3, g.chh, g.cw), dtype=torch.uint8, device=cuda)
+    out = torch.empty((3, 3, g.chh, g.cw), dtype=torch.uint8, device=cuda)
+    before = step_frames_batched.launches
+    for l in range(3):
+        args = (prev, *(t[:, l] for t in per_step), qmul, g.chh, g.cw, g.gly)
+        step_frames_batched(*args, out=out[:, l])
+        assert torch.equal(out[:, l], step_frames_batched_plain(*args))
+        prev = out[:, l]
+    assert step_frames_batched.launches - before == 3
+    canv = out.view(9, g.chh, g.cw)[:7]
+    for p, r in zip(tdl.slice_yuv(g, canv), runtime.ref_decode(data)[1:4]):
+        assert np.array_equal(p.cpu().numpy(), r)
+
+
+def test_dense_routes_launch_k3_and_k4_only(cuda):
+    counters = (step_frames, decode_blocks, mc_reconstruct, seq_frames_dense,
+                step_frames_batched)
+    for key, kind, k3, k4 in ((1 << 30, "dense", 6, 0), (4, "gops", 0, 4)):
+        data = synth.random_stream(4112, 64, 6, seed=33, keyframes=key)
+        assert tdl.choose_route(data).kind == kind
+        before = [fn.launches for fn in counters]
+        got = tdl.decode_video_yuv(data, device="cuda")
+        assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 0, k3, k4]
+        for p, r in zip(got, runtime.ref_decode(data)[1:4]):
+            assert np.array_equal(p.cpu().numpy(), r)

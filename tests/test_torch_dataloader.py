@@ -7,11 +7,16 @@ Clips: those of test_units_kernel.py (256x128 with an I-frame mid-stream,
 128x96 with one keyframe, q0 with multi-chunk tiles), plus 136x90, whose
 width is not a multiple of 128: only the port and ref_decode take it.
 
-Fault streams, which K1's gates refuse and which decode frame by frame
-(K5 + K7) instead: the 128x96 clip with its I-packet re-encoded on q-table
-indices (0, 1, 3), the same clip without its I-packet (the first frame is
-P), and a 4112x32 stream built from runtime payloads. The JAX package takes
-them through its per-block XLA paths."""
+Fault streams, which the frame steps' gates refuse and which decode frame
+by frame (K5 + K7) instead: the 128x96 clip with its I-packet re-encoded on
+q-table indices (0, 1, 3), the same clip without its I-packet (the first
+frame is P), and a 4112x32 stream built from runtime payloads without its
+I-packet. The JAX package takes them through its per-block XLA paths.
+
+Streams wider than K1 takes (2*scp > 1024): 4112x32 with one keyframe
+(route "dense", K3) and with one every 3 frames (route "gops", K4), against
+ref_decode and the JAX package, and a clip too long for the dense
+positions, which falls back by name."""
 
 from __future__ import annotations
 
@@ -164,7 +169,7 @@ FAULTS = {
     # name: the K1 gate the stream fails
     "128x96_q013": "uniform q indices per frame type, U == V",
     "128x96_first_p": "first frame is intra",
-    "4112x32": "2*scp <= 1024",
+    "4112x32": "first frame is intra",
 }
 
 
@@ -180,14 +185,21 @@ def fault_streams(clips):
         "128x96_q013": synth.container(128, 96, info["qtables"],
                                        [requant] + packets[1:]),
         "128x96_first_p": synth.container(128, 96, info["qtables"], packets[1:]),
-        "4112x32": synth.random_stream(4112, 32, 3, seed=12),
+        "4112x32": synth.container(4112, 32, *_wide_without_first(12)),
     }
+
+
+def _wide_without_first(seed):
+    """A 4112x32 random stream's q-tables and packets without its first."""
+    info, packets = split_packets(synth.random_stream(4112, 32, 4, seed=seed))
+    return info["qtables"], packets[1:]
 
 
 @pytest.mark.parametrize("name", list(FAULTS))
 def test_fault_streams_take_the_frames_path_by_gate(fault_streams, name):
     route = tdl.choose_route(fault_streams[name])
     assert route.gate == FAULTS[name] and route.host is None
+    assert route.kind == "frames"
     with pytest.raises(ValueError, match=f"gate '{re.escape(FAULTS[name])}'"):
         tdl.demux_host(fault_streams[name])
 
@@ -213,9 +225,59 @@ def test_fault_streams_match_jax_and_reference(fault_streams, name):
 def test_frames_path_matches_units_path(clips, name):
     data = clips[name]["data"]
     route = tdl.choose_route(data)
-    assert route.gate is None and route.host is not None
+    assert route.gate is None and route.host is not None and route.kind == "units"
     g, units = tdl.decode_canvases(data, device="cpu")
     g2, frames = tdl.decode_frames(data, device="cpu")
     assert g2 == g and frames.shape == units.shape
     for a, b in zip(tdl.slice_yuv(g, frames), tdl.slice_yuv(g, units)):
         assert torch.equal(a, b)
+
+
+WIDE = {
+    # name: (keyframe interval, route, (G, L))
+    "4112x32_one_key": (1 << 30, "dense", None),
+    "4112x32_gop3": (3, "gops", (3, 3)),
+}
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_wide_streams_take_the_dense_routes(name):
+    key, kind, gops = WIDE[name]
+    data = synth.random_stream(4112, 32, 7, seed=21, keyframes=key)
+    route = tdl.choose_route(data)
+    assert (route.kind, route.gate, route.gops) == (kind, None, gops)
+    assert tdl.failed_gate(route.g) == "2*scp <= 1024"
+    with pytest.raises(ValueError, match="gate '2\\*scp <= 1024'"):
+        tdl.demux_host(data)
+    ry, ru, rv = runtime.ref_decode(data)[1:4]
+    got = [p.numpy() for p in pfv_torch.decode_video_yuv(data, device="cpu")]
+    want = [np.asarray(p) for p in jdl.decode_video_yuv(data)]
+    for p, q, r in zip(got, want, (ry, ru, rv)):
+        assert p.shape == r.shape and np.array_equal(p, r) and np.array_equal(p, q)
+    chans = pfv_torch.rgba_view(pfv_torch.decode_video_rgba(data, device="cpu"))
+    up = [np.repeat(np.repeat(p, 2, axis=1), 2, axis=2)[:, :ry.shape[1], :ry.shape[2]]
+          for p in (ru, rv)]
+    assert np.array_equal(chans[..., :3].numpy(), np.asarray(jdl.yuv_to_rgb(ry, *up)))
+    sums = pfv_torch.decode_video_checksums(data, device="cpu")
+    assert np.array_equal(sums.numpy().astype(np.uint32), jdl.plane_checksums(ry, ru, rv))
+    g, canvases = tdl.decode_canvases(data, device="cpu")
+    _, frames = tdl.decode_frames(data, device="cpu")
+    for a, b in zip(tdl.slice_yuv(g, canvases), tdl.slice_yuv(g, frames)):
+        assert torch.equal(a, b)
+
+
+def test_dense_positions_limit_is_a_named_gate():
+    """4112x1024: 64*row_span = 7,864,320, so 274 frames pass 2^31; the
+    P-frames repeat one packet, and the route is chosen before any demux."""
+    g = tdl.geometry(4112, 1024)
+    assert 64 * tdl.pstep_tables(g)[2] == 7864320
+    info, packets = split_packets(synth.random_stream(4112, 1024, 2, seed=5))
+    for frames, kind, gate in ((273, "dense", None),
+                               (274, "frames", "F*64*row_span < 2^31")):
+        data = synth.container(4112, 1024, info["qtables"],
+                               packets[:1] + packets[1:] * (frames - 1))
+        assert tdl.dense_gate(g, frames) == gate
+        if gate is not None:
+            route = tdl.choose_route(data)
+            assert (route.kind, route.gate, route.host) == (kind, gate, None)
+    assert tdl.dense_gate(tdl.geometry(32768, 32768), 1) == "row_span < 2^24"

@@ -1,0 +1,198 @@
+"""The dense route of pfv_torch against the JAX package's scatter-fed pstep
+path: the demux tables, the device densify, K3's and K4's plain versions
+and the GOP decode, fed the same pstep demux output. All comparisons are
+exact.
+
+The clip: 256x128, 8 frames, a keyframe every 4 (two GOPs), quality 1, so
+that coefficients span several i8 units. The JAX builders
+(_densify_units_pstep, _pstep_metadata, _pstep_qmul) are closures of
+dataloader._make_decoder, reached through the jitted entry point's closure
+cells as tests/test_torch_step.py reaches them; K3's reference is
+make_step_seq and K4's make_step, both in interpret mode."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pfv_torch import dataloader as tdl
+from pfv_torch.kernels.dense_step import (seq_frames_dense, seq_frames_dense_plain,
+                                          step_frames_batched,
+                                          step_frames_batched_plain)
+from pfv_tpu import dataloader as jdl
+from pfv_tpu import runtime
+from pfv_tpu.encoding import encode_video
+from pfv_tpu.ops.pallas.step_kernel import make_step, make_step_seq
+from pfv_tpu.utils.synth import synth_yuv_frame
+
+W, H, FRAMES, KEY = 256, 128, 8, 4
+
+
+def _closure(fn, name):
+    fn = getattr(fn, "__wrapped__", fn)
+    return dict(zip(fn.__code__.co_freevars, fn.__closure__))[name].cell_contents
+
+
+@pytest.fixture(scope="module")
+def clip():
+    ys, us, vs = map(np.stack, zip(*[synth_yuv_frame(t + 2, W, H)
+                                     for t in range(FRAMES)]))
+    data = encode_video(ys, us, vs, 30, quality=1, keyframes=KEY)
+    host = tdl.demux_host_packed(data)
+    info, g, deltas, vals, meta = host
+    dec = jdl.get_decoder(W, H, info["qtables"], "pstep")
+    packed = dec.decode_yuv_packed
+    canvases = _closure(_closure(packed, "decode_yuv_impl_pstep"), "_pstep_canvases")
+    jmeta = _closure(packed, "_unpack_meta")(jnp.asarray(meta))
+    mvx, mvy, hc, ftype, qidx = jmeta
+    dyc, dxc, hcc, stab = _closure(canvases, "_pstep_metadata")(mvx, mvy, hc)
+    jq = _closure(canvases, "_pstep_qmul")(ftype.astype(jnp.int32), hc, qidx)
+    jdense = _closure(packed, "_densify_units_pstep")(
+        jnp.asarray(deltas), jnp.asarray(vals), FRAMES)
+    g_, (coeffs, mvx_t, mvy_t, hc_t, ftype_t, qmul) = tdl.upload_packed(host, device="cpu")
+    maps = tdl.block_maps(g, mvx_t, mvy_t, hc_t)
+    return dict(data=data, host=host, g=g, coeffs=coeffs, maps=maps, ftype=ftype_t,
+                qmul=qmul, jdense=jdense, jmaps=(dyc, dxc, hcc, stab), jq=jq,
+                jftype=ftype.astype(jnp.int32))
+
+
+def test_pstep_tables_match_jax():
+    for w, h in ((256, 128), (128, 96), (136, 90), (1920, 1080), (4112, 32),
+                 (7680, 4320)):
+        want = jdl._pstep_tables(w, h)
+        got = tdl.pstep_tables(tdl.geometry(w, h))
+        for a, b in zip(got[:2], want[:2]):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert got[2] == want[2]
+
+
+def test_densify_matches_jax(clip):
+    vals = clip["host"][3]
+    assert np.abs(vals.astype(np.int32)).max() == 127, "no multi-unit coefficient"
+    want = np.asarray(clip["jdense"])
+    got = clip["coeffs"]
+    assert got.dtype == torch.int16 and got.shape == want.shape
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_k3_plain_matches_make_step_seq(clip):
+    g = clip["g"]
+    dyc, dxc, hcc, stab = clip["jmaps"]
+    seq = make_step_seq(g.chh, g.cw, g.gly, interpret=True, ladder="plain", sb=1)
+    want = np.asarray(seq(clip["jdense"], dyc, dxc, hcc, clip["jftype"], stab,
+                          clip["jq"]))
+    assert np.array_equal(clip["qmul"].numpy(), np.asarray(clip["jq"])[..., 0])
+    args = (clip["coeffs"], *clip["maps"], clip["ftype"], clip["qmul"], g.chh,
+            g.cw, g.gly)
+    got = seq_frames_dense_plain(*args)
+    assert got.shape == want.shape and np.array_equal(got.numpy(), want)
+    # the wrapper takes the plain version for a CPU tensor, without a launch
+    before = seq_frames_dense.launches
+    assert torch.equal(seq_frames_dense(*args), got)
+    assert seq_frames_dense.launches == before
+    _, ry, ru, rv, _ = runtime.ref_decode(clip["data"])
+    for p, r in zip(tdl.slice_yuv(g, got), (ry, ru, rv)):
+        assert np.array_equal(p.numpy(), r)
+
+
+def test_k4_plain_batched_over_gops_matches_make_step(clip):
+    g = clip["g"]
+    dyc, dxc, hcc, stab = clip["jmaps"]
+    step = make_step(g.chh, g.cw, g.gly, interpret=True, ladder="plain")
+    canvas, want = jnp.zeros((g.chh, g.cw), jnp.uint8), []
+    for f in range(FRAMES):
+        canvas = step(canvas, clip["jdense"][f], dyc[f], dxc[f], hcc[f],
+                      clip["jftype"][f], stab[f], clip["jq"])
+        want.append(np.asarray(canvas))
+    n_gops = FRAMES // KEY
+    coeffs = clip["coeffs"].view(n_gops, KEY, 64, -1)
+    dy, dx, hc = (m.view(n_gops, KEY, g.gch, g.gcw) for m in clip["maps"])
+    ft = clip["ftype"].view(n_gops, KEY)
+    out = torch.empty((n_gops, KEY, g.chh, g.cw), dtype=torch.uint8)
+    # a P-frame reads its explicit previous canvas: random for the first step
+    prev = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (n_gops, g.chh, g.cw), dtype=np.uint8))
+    before = step_frames_batched.launches
+    for l in range(KEY):
+        args = (prev, coeffs[:, l], dy[:, l], dx[:, l], hc[:, l], ft[:, l],
+                clip["qmul"], g.chh, g.cw, g.gly)
+        got = step_frames_batched(*args, out=out[:, l])
+        assert got.data_ptr() == out[:, l].data_ptr()
+        assert torch.equal(step_frames_batched_plain(*args), out[:, l])
+        prev = out[:, l]
+    assert step_frames_batched.launches == before
+    assert np.array_equal(out.view(FRAMES, g.chh, g.cw).numpy(), np.stack(want))
+
+
+def test_k4_rejects_what_the_kernel_cannot_take(clip):
+    g = clip["g"]
+    dy, dx, hc = (m[:2] for m in clip["maps"])
+    canv = torch.zeros((3, g.chh, g.cw), dtype=torch.uint8)
+    good = [canv[:2], clip["coeffs"][:2], dy, dx, hc, clip["ftype"][:2], clip["qmul"]]
+    bad = {
+        0: canv[:2].transpose(1, 2),
+        1: clip["coeffs"][:2, :, :-1],
+        2: dy.to(torch.int32),
+        5: clip["ftype"][:2].to(torch.int64),
+        6: clip["qmul"][:1],
+    }
+    for i, t in bad.items():
+        args = list(good)
+        args[i] = t
+        with pytest.raises(ValueError):
+            step_frames_batched(*args, g.chh, g.cw, g.gly)
+    for out in (canv[:2], canv[1:]):  # in place, or overlapping by one canvas
+        with pytest.raises(ValueError, match="overlaps"):
+            step_frames_batched(*good, g.chh, g.cw, g.gly, out=out)
+    with pytest.raises(ValueError):
+        seq_frames_dense(clip["coeffs"][:, :, ::2], *clip["maps"], clip["ftype"],
+                         clip["qmul"], g.chh, g.cw, g.gly)
+
+
+def test_gop_shape_matches_jax_cases():
+    ftype = np.array([1, 2, 2, 1, 2, 2, 1, 2], np.uint8)
+    cases = [(ftype, 1000), (np.array([1, 2, 2, 1], np.uint8), 1000),
+             (np.array([1, 2, 1, 2, 2], np.uint8), 1000),
+             (np.array([1, 2, 2], np.uint8), 1000), (ftype, 100000)]
+    got = [tdl.gop_shape(*c) for c in cases]
+    assert got == [(3, 3), (2, 3), None, None, None]
+    assert got == [jdl._gop_shape(*c) for c in cases]
+
+
+def _jax_gops(data, want):
+    env = {"PFV_STEP": "1", "PFV_SEQ": "0", "PFV_LADDER": "plain"}
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in env.items():
+            mp.setenv(k, v)
+        jdl._make_decoder.cache_clear()
+        try:
+            info, args = jdl._demux_packed_to_device(data, 0)
+            assert info["decode_mode"] == "pstep" and info["gop_shape"] == (2, KEY)
+            dec = jdl.get_decoder(W, H, info["qtables"], info["decode_mode"])
+            return dec.decode_packed_gops(*args, 2, KEY, want)
+        finally:
+            jdl._make_decoder.cache_clear()
+
+
+@pytest.mark.parametrize("want", ["yuv", "rgba", "checksums"])
+def test_decode_packed_gops_matches_jax(clip, want):
+    before = step_frames_batched.launches
+    got = tdl.decode_packed_gops(clip["host"], 2, KEY, want, device="cpu")
+    assert step_frames_batched.launches == before
+    ref = _jax_gops(clip["data"], want)
+    if want == "yuv":
+        for p, r in zip(got, ref):
+            assert np.array_equal(p.numpy(), np.asarray(r))
+    elif want == "rgba":
+        assert np.array_equal(got.view(torch.int32).numpy().view(np.uint32),
+                              np.asarray(ref))
+    else:
+        assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(ref))
+
+
+def test_decode_packed_gops_rejects_a_wrong_gop_shape(clip):
+    for g, l in ((2, 3), (1, KEY), (3, KEY)):
+        with pytest.raises(ValueError):
+            tdl.decode_packed_gops(clip["host"], g, l, "yuv", device="cpu")
