@@ -7,15 +7,22 @@ from the repository root. Phases, one line each:
   1. build the CUDA kernels from pfv_torch/csrc with nvcc and, beside them,
      the port's own copy of the C++ entropy runtime with g++;
   2. hold each kernel against its plain PyTorch version on the card, on the
-     inputs the main path gives it for the three committed corpora;
+     inputs the main path gives it for the three committed corpora, and K1
+     on the edge streams of pfv_torch.synth (widths 528, 1936 and 4096,
+     height 16, the longest vectors the planes allow, P-frames with no
+     coded block and with all coded), also with random vectors of the
+     7-bit field's whole range that leave the canvas on every side;
   3. drive the main path (decode_video_yuv on all three corpora,
      decode_video_rgba on 1080p, decode_video_checksums on 512x384) and
      check it pixel-exact against the scalar reference decoder;
   4. check the launch counts of that run: K1 once per decoded frame, K2 at
      least once, no other kernel;
-  5. time each kernel and its plain version per 1080p clip with CUDA events;
+  5. time K1 and K2 and their plain versions per 1080p clip with CUDA
+     events and the profiler's device time, and count the unit words K1's
+     CTAs read against the words of the tiles;
   6. time each layer of a whole 1080p decode (host demux, upload and
-     tables, K1, K2) and the whole calls, host clock, synchronized;
+     tables, K1, K2) and the whole calls, host clock, synchronized, and the
+     512x384 demux and decode_video_yuv;
   7. hold K5 (iDCT) and K7 (motion compensation) against their plain
      versions on the card, on the inputs the streaming Decoder gives them
      for the first I-frame and the first P-frame of both 1080p corpora;
@@ -58,7 +65,9 @@ from the repository root. Phases, one line each:
      GOPs) against their plain versions on the card, on the inputs the dense
      routes give them for the three corpora: K3 over the whole clip, K4 in
      GOP form ((2, 60) at 1080p, (3, 60) at 512x384, 19 pad frames), step
-     by step;
+     by step (one call on [:, l:l+1] views of the (G, L, ...) tensors) and
+     whole; and
+     on the 4112x16 edge stream, also with random vectors;
  16. drive the dense routes: decode_video_yuv and decode_video_rgba of an
      8K UHD stream (7680x4320, 24 frames, a keyframe every 8: route
      "dense", K3) and of a 4112x64 stream with a keyframe every 4 (route
@@ -70,11 +79,20 @@ from the repository root. Phases, one line each:
      tables, densify, K3, K2) and the whole calls, and the per-frame
      fallback on the same 8K stream.
 Each main-path phase (3, 8, 9, 12, 13, 16) sets the launch counts to 0 just
-before it and reads them just after. The kernels' JSON line gives each
-kernel's time beside its bound: the larger of the bytes it must move at the
-card's 3.35 TB/s and its operations at 67 T/s, the H100's scalar rate,
-for the inputs of the timed call. The line before the last is the kernels' JSON
-summary; the last line is the device JSON. Any failure raises, so the exit code is not 0; without a CUDA
+before it and reads them just after. Under programmatic dependent launch
+the profiler's time of a grid holds its wait for the previous grid, so a
+clip's device time can exceed its CUDA-event time. The kernels' JSON line
+gives each kernel's time beside its bound: the larger of the bytes it must
+move at the card's 3.35 TB/s and the operations its code runs on the
+inputs of the timed call (counted from the CUDA sources: see the *_OPS
+constants), at the card's issue rate from its SM count and top SM clock
+(nvidia-smi): one warp instruction per clock in each of an SM's four
+partitions, 128 lanes per SM, ~33.5 T op/s on an H100 SXM, for the integer
+kernels (K1, K3-K7; nvcc issues integer adds and shifts on the INT32 pipe
+and, as IMAD, on the FMA pipe); twice that for K2's float math (a fused
+multiply-add is two operations, 67 T/s). Both sides are printed. The line
+before the last is the kernels' JSON summary; the last line is the device
+JSON. Any failure raises, so the exit code is not 0; without a CUDA
 device, or without the repository around it, it exits non-zero before
 printing a result.
 """
@@ -107,12 +125,27 @@ FALLBACK_WIDE = (4112, 64, 6)  # width, height, frames of the random stream
 UHD = (7680, 4320, 24, 8)  # width, height, frames, keyframe interval
 GOPS = {"1080p": (2, 60), "1080p_pan": (2, 60), "512x384": (3, 60)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-# operations per coefficient: dequantize + the 16 one-dimensional 8-point
-# transforms of an 8x8 block (~100 adds, shifts and masks each) + clamp;
-# forward DCT + quantization; per pixel: prediction, select and store, or
-# the colour conversion and packing
-IDCT_OPS, FDCT_OPS, PIXEL_OPS = 30, 35, 15
+# operations per second of the card, set in main(): "int" (128 lanes per SM)
+# and "fp32" (128 lanes, FMA = 2)
+RATES = {}
+# Operations, counted from the CUDA sources. One 8-point transform (dct8.cuh
+# idct8 or fdct8): 36 adds and 12 truncating divisions (mask, add, shift),
+# 6 sign extractions. Per inverse-transformed coefficient: dequantize, a
+# column and a row transform, then shift, offset, two clamps and the byte
+# pack; a dense frame step widens each coefficient it loads (one more).
+# Per forward-transformed coefficient (K6): the residual (subtract, two
+# clamps, a truncating halving, a shift), two transforms, scale, shift and
+# divide. Frame steps (step_common.cuh store_tile), per 16-pixel row of a
+# P-frame block: 4 funnel shifts where the window is not 4-byte aligned
+# (dx % 4 != 0), the select where the block is coded (6 SIMD operations per
+# 4 pixels); an intra row is a copy. K1 per unit word: sign-extend the
+# value, split row and lane, the shared atomic add. K7 per pixel of a coded
+# block: offset, double, add, two clamps. K2 per pixel: colour conversion
+# and packing, float32.
+DCT8_OPS = 36 + 3 * 12 + 6
+IDCT_OPS = 1 + 2 * DCT8_OPS / 8 + 5
+FDCT_OPS = 5 + 2 * DCT8_OPS / 8 + 3
+SHIFT_OPS, SELECT_OPS, UNIT_OPS, MC_OPS, RGBA_OPS = 4, 24, 4, 5, 15
 # the corpora's sources: width, height, frames, generator (bench.py CONFIGS)
 SOURCES = {
     "512x384": (512, 384, 161, "std"),
@@ -165,10 +198,59 @@ def median_host_ms(fn) -> float:
     return statistics.median(host_ms(fn) for _ in range(REPS))
 
 
-def bound(nbytes: float, ops: float):
-    """(least ms, "bytes" or "operations"): the larger of the two times."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def bound(nbytes: float, ops: float, kind: str = "int"):
+    """(least ms, "bytes" or "operations", the bytes' ms, the operations'
+    ms): the larger of the bytes' and the operations' times."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / RATES[kind]
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", t_bytes, t_ops
+
+
+def card_rates() -> dict:
+    """The card's integer and float32 operation rates from its SM count and
+    top SM clock: one warp instruction per clock per SM partition."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"int": sms * 128 * mhz * 1e6, "fp32": sms * 128 * 2 * mhz * 1e6,
+            "sms": sms, "mhz": mhz}
+
+
+def device_ms(fn, kernel: str, reps: int = 3) -> float:
+    """The profiler's device time per call of fn of the kernels whose name
+    holds `kernel`, ms; 0.0 when the profiler saw none."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+             if kernel in e.key)
+    return us / reps / 1e3
+
+
+def random_vectors(maps, seed: int):
+    """The (dy, dx, hc) maps with dy and dx replaced by random vectors of
+    the 7-bit field's whole range, so that windows leave the canvas on
+    every side."""
+    dy, dx, hc = maps
+    gen = torch.Generator(device=dy.device).manual_seed(seed)
+    return (*(torch.randint(-64, 64, dy.shape, generator=gen, device=dy.device,
+                            dtype=torch.int8) for _ in range(2)), hc)
+
+
+def unit_scan(args, g) -> tuple[int, int]:
+    """(unit words K1's CTAs read, unit words of the tiles) for a clip: a
+    CTA that needs the residual reads all of its tile's words."""
+    _, coff, _, _, hc, ftype = args[:6]
+    f = ftype.shape[0]
+    words = ((coff[1:] - coff[:-1]).to(torch.int64) * args[0].shape[1]).view(f, g.gch)
+    nlb = -(-g.gcw // 32)
+    padded = torch.zeros((f, g.gch, nlb * 32), dtype=torch.bool, device=hc.device)
+    padded[..., :g.gcw] = hc != 0
+    ctas = torch.where((ftype == 1)[:, None, None], True,
+                       padded.view(f, g.gch, nlb, 32).any(-1)).sum(-1)
+    return int((words * ctas).sum()), int(words.sum())
 
 
 def nbytes(*tensors) -> int:
@@ -182,33 +264,43 @@ def decoded_blocks(ftype, hc) -> int:
     return int(torch.where(intra, hc.shape[1], hc.to(torch.int64).sum(1)).sum())
 
 
-def step_bound(ftype, hc, out, inputs, dense: bool = False):
+def step_bound(ftype, dx, hc, out, inputs, dense: bool = False, words: int = 0):
     """Bound of a frame step: its inputs read once (dense coefficients, not
     among `inputs`, only where a block is decoded: 512 B each), the
-    canvases `out` written once, IDCT_OPS per decoded coefficient and
-    PIXEL_OPS per pixel. hc: (F, blocks) coded flags of the canvas."""
+    canvases `out` written once; the operations of the code (IDCT_OPS per
+    decoded coefficient, one more if dense, SHIFT_OPS and SELECT_OPS per
+    P-frame block row, UNIT_OPS per unit word). ftype (F,), dx and hc
+    (F, blocks) of the canvas."""
     n = decoded_blocks(ftype, hc)
     moved = nbytes(out, *inputs) + (512 * n if dense else 0)
-    return bound(moved, IDCT_OPS * 256 * n + PIXEL_OPS * out.numel())
+    p = (ftype != 1)[:, None]
+    shifted = int(((dx.to(torch.int32) % 4 != 0) & p).sum())
+    coded = int(((hc != 0) & p).sum())
+    ops = ((IDCT_OPS + dense) * 256 * n + 16 * (SHIFT_OPS * shifted + SELECT_OPS * coded)
+           + UNIT_OPS * words)
+    return bound(moved, ops)
 
 
-def gop_steps(step, g, per_step, qmul, out, plain=None):
-    """Run K4 (`step`) over the L steps of G GOPs into out (G, L, chh, cw),
-    from zero canvases; with `plain`, hold each step against it on the same
-    inputs -> the largest absolute difference."""
+def gop_steps(g, per_step, qmul, out):
+    """Run K4 over the L steps of G GOPs into out (G, L, chh, cw), one
+    `step_gops` call on [:, l:l+1] views per step, from zero canvases; hold
+    each step against its plain version on the same inputs -> the largest
+    absolute difference."""
+    from pfv_torch.kernels.dense_step import step_frames_batched_plain, step_gops
+
     prev = torch.zeros_like(out[:, 0])
     err = 0
     for l in range(out.shape[1]):
+        step_gops(*(t[:, l:l + 1] for t in per_step), qmul, g.chh, g.cw, g.gly,
+                  prev=prev, out=out[:, l:l + 1])
         args = (prev, *(t[:, l] for t in per_step), qmul, g.chh, g.cw, g.gly)
-        step(*args, out=out[:, l])
-        if plain is not None:
-            err = max(err, max_abs_err(out[:, l], plain(*args)))
+        err = max(err, max_abs_err(out[:, l], step_frames_batched_plain(*args)))
         prev = out[:, l]
     return err
 
 
 def counts():
-    from pfv_torch.kernels.dense_step import seq_frames_dense, step_frames_batched
+    from pfv_torch.kernels.dense_step import seq_frames_dense, step_gops
     from pfv_torch.kernels.fdct import fdct_blocks
     from pfv_torch.kernels.idct import decode_blocks
     from pfv_torch.kernels.mc import mc_reconstruct
@@ -216,7 +308,7 @@ def counts():
     from pfv_torch.kernels.step import step_frames
 
     return {"K1": step_frames, "K2": canvas_rgba, "K3": seq_frames_dense,
-            "K4": step_frames_batched, "K5": decode_blocks, "K6": fdct_blocks,
+            "K4": step_gops, "K5": decode_blocks, "K6": fdct_blocks,
             "K7": mc_reconstruct}
 
 
@@ -432,6 +524,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    RATES.update(card_rates())
+    print(f"operation rates for the bounds: {RATES['sms']} SMs at {RATES['mhz']:.0f} MHz "
+          f"(clocks.max.sm): integer {RATES['int'] / 1e12:.3f} T op/s (128 lanes per SM), "
+          f"float32 {RATES['fp32'] / 1e12:.3f} T op/s (128 lanes, FMA = 2) ({card})")
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
@@ -463,6 +559,25 @@ def main() -> int:
               f"{args[5].shape[0]} frames, {args[0].shape[0]} unit chunks): "
               f"K1 max_abs_err {e1}, K2 max_abs_err {e2}")
         err_k1, err_k2 = max(err_k1, e1), max(err_k2, e2)
+    for name in sorted(synth.EDGE_STREAMS):
+        data = synth.edge_stream(name)
+        route = dl.choose_route(data)
+        if route.kind != "units":
+            continue
+        g, args = dl.upload(route.host, dev)
+        dims = (g.chh, g.cw, g.gly)
+        canv = step_frames(*args, *dims)
+        e1 = max_abs_err(canv, step_frames_plain(*args, *dims))
+        exact = all((p.cpu().numpy() == r).all() for p, r in zip(
+            dl.slice_yuv(g, canv), runtime.ref_decode(data)[1:4]))
+        wild = (*args[:2], *random_vectors(args[2:5], 5), *args[5:])
+        ew = max_abs_err(step_frames(*wild, *dims), step_frames_plain(*wild, *dims))
+        coded = [int(h.sum()) for h, t in zip(args[4].flatten(1), args[5].tolist()) if t != 1]
+        print(f"phase 2 K1 vs plain, edge stream {name} ({args[5].shape[0]} frames, coded "
+              f"blocks per P-frame {coded} of {g.nb}): max_abs_err {e1}, pixel-exact vs "
+              f"ref_decode: {exact}; with random vectors in [-64, 63]: max_abs_err {ew}")
+        check(exact, f"K1 on the edge stream {name} differs from ref_decode")
+        err_k1 = max(err_k1, e1, ew)
     check(err_k1 == 0 and err_k2 == 0, "a kernel disagrees with its plain version")
 
     zero_counts()
@@ -506,18 +621,25 @@ def main() -> int:
         dims = (g.chh, g.cw, g.gly)
         times[("K1", name)] = paired_ms(lambda: step_frames(*args, *dims),
                                         lambda: step_frames_plain(*args, *dims))
-        print(f"phase 5 K1 per clip, {name}: kernel {times[('K1', name)][0]:.3f} ms, "
-              f"plain {times[('K1', name)][1]:.3f} ms ({card})")
+        k1_dev = device_ms(lambda: step_frames(*args, *dims), "step_frame_kernel")
+        read, words = unit_scan(args, g)
+        print(f"phase 5 K1 per clip, {name}: kernel {times[('K1', name)][0]:.3f} ms (one "
+              f"call), profiler device time {k1_dev:.3f} ms (each grid's wait for the "
+              f"previous one included), plain {times[('K1', name)][1]:.3f} ms; "
+              f"unit words read by its CTAs {read} against {words} in the tiles "
+              f"({read / words:.2f}x) ({card})")
         if name == TIMED[0]:
             canv = step_frames(*args, *dims)
             geo = (g.height, g.width, g.ly0, g.lcw)
             times["K2"] = paired_ms(lambda: canvas_rgba(canv, *geo),
                                     lambda: canvas_rgba_plain(canv, *geo))
-            print(f"phase 5 K2 per clip, {name}: kernel {times['K2'][0]:.3f} ms, "
-                  f"plain {times['K2'][1]:.3f} ms ({card})")
-            bounds["K1"] = step_bound(args[5], args[4].flatten(1), canv, args[:7])
+            k2_dev = device_ms(lambda: canvas_rgba(canv, *geo), "canvas_rgba_kernel")
+            print(f"phase 5 K2 per clip, {name}: kernel {times['K2'][0]:.3f} ms, device "
+                  f"time {k2_dev:.3f} ms, plain {times['K2'][1]:.3f} ms ({card})")
+            bounds["K1"] = step_bound(args[5], args[3].flatten(1), args[4].flatten(1), canv,
+                                      args[:7], words=int(args[1][-1]) * args[0].shape[1])
             px = canv.shape[0] * g.height * g.width
-            bounds["K2"] = bound(nbytes(canv) + 4 * px, PIXEL_OPS * px)
+            bounds["K2"] = bound(nbytes(canv) + 4 * px, RGBA_OPS * px, "fp32")
         canv = step_frames(*args, *dims)
         geo = (g.height, g.width, g.ly0, g.lcw)
         layers = {
@@ -534,6 +656,10 @@ def main() -> int:
             f"{k} {statistics.median(host_ms(fn) for _ in range(REPS)):.3f}"
             for k, fn in layers.items())
         print(f"phase 6 per clip, {name}, median of {REPS}, ms: {parts} ({card})")
+    small = {"demux": lambda: dl.demux_host(datas["512x384"]),
+             "decode_video_yuv": lambda: dl.decode_video_yuv(datas["512x384"], dev)}
+    print(f"phase 6 per clip, 512x384, median of {REPS}, ms: " + ", ".join(
+        f"{k} {median_host_ms(fn):.3f}" for k, fn in small.items()) + f" ({card})")
 
     # phase 7: K5 and K7 against their plain versions, Decoder inputs
     err_k5 = err_k7 = 0
@@ -671,7 +797,7 @@ def main() -> int:
                          IDCT_OPS * sum(a[0].numel() for a, _ in pin))
     bounds["K7"] = bound(sum(nbytes(r, p, *a) + o.numel() for r, p, (_, a), o
                              in zip(blocks, refp, pin, outp)),
-                         PIXEL_OPS * sum(o.numel() for o in outp))
+                         MC_OPS * 256 * sum(int(a[4].sum()) for _, a in pin))
     times["K7"] = paired_ms(k7_frame, lambda: [
         mc_reconstruct_plain(r, p, *a, False, o)
         for r, p, (_, a), o in zip(blocks, refp, pin, outp)])
@@ -883,8 +1009,7 @@ def main() -> int:
 
     # phase 15: K3 and K4 against their plain versions, dense-route inputs
     from pfv_torch.kernels.dense_step import (seq_frames_dense, seq_frames_dense_plain,
-                                              step_frames_batched,
-                                              step_frames_batched_plain)
+                                              step_gops, step_gops_plain)
 
     def k3_inputs(host):
         g, (coeffs, mvx, mvy, hc, ftype, qmul) = dl.upload_packed(host, device=dev)
@@ -899,17 +1024,49 @@ def main() -> int:
         del args
         _, f, per_step, qmul = dl.upload_gops(host, *GOPS[name], dev)
         out = torch.empty((*GOPS[name], g.chh, g.cw), dtype=torch.uint8, device=dev)
-        e4 = gop_steps(step_frames_batched, g, per_step, qmul, out,
-                       step_frames_batched_plain)
+        e4 = gop_steps(g, per_step, qmul, out)
+        dims = (g.chh, g.cw, g.gly)
+        whole = step_gops(*per_step, qmul, *dims)
+        e4 = max(e4, max_abs_err(whole, out), max_abs_err(whole, step_gops_plain(
+            *per_step, qmul, *dims)))
         exact = all((p.cpu().numpy() == r).all() for p, r in zip(
             dl.slice_yuv(g, out.view(-1, g.chh, g.cw)[:f]), refs[name]))
         print(f"phase 15 kernels vs plain, {name} ({f} frames, dense coefficients "
               f"{tuple(per_step[0].shape[2:])} i16 per frame): K3 max_abs_err {e3}; K4 "
               f"max_abs_err {e4} in GOP form {GOPS[name]} ({np.prod(GOPS[name]) - f} pad "
-              f"frames), its frames pixel-exact vs ref_decode: {exact}")
+              f"frames; step by step and whole), its frames pixel-exact vs ref_decode: "
+              f"{exact}")
         check(exact, f"K4's GOP decode of {name} differs from ref_decode")
         err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
-        del per_step, out
+        del per_step, out, whole
+    name = "4112x16"
+    data = synth.edge_stream(name)
+    route = dl.choose_route(data)
+    check(route.kind == "gops", f"the edge stream {name} did not take the GOP route")
+    g, args = k3_inputs(route.host)
+    canv = seq_frames_dense(*args)
+    e3 = max_abs_err(canv, seq_frames_dense_plain(*args))
+    wild = (args[0], *random_vectors(args[1:4], 6), *args[4:])
+    e3w = max_abs_err(seq_frames_dense(*wild), seq_frames_dense_plain(*wild))
+    _, f, per_step, qmul = dl.upload_gops(route.host, *route.gops, dev)
+    out = torch.empty((*route.gops, g.chh, g.cw), dtype=torch.uint8, device=dev)
+    e4 = gop_steps(g, per_step, qmul, out)
+    dims = (g.chh, g.cw, g.gly)
+    e4 = max(e4, max_abs_err(step_gops(*per_step, qmul, *dims), out))
+    prev = torch.randint(0, 256, (route.gops[0], g.chh, g.cw), dtype=torch.uint8,
+                         device=dev)
+    wild = (per_step[0], *random_vectors(per_step[1:4], 7), per_step[4], qmul, *dims)
+    e4w = max_abs_err(step_gops(*wild, prev=prev), step_gops_plain(*wild, prev=prev))
+    ref = runtime.ref_decode(data)[1:4]
+    exact = all((p.cpu().numpy() == r).all() for c in (canv, out.view(-1, g.chh, g.cw)[:f])
+                for p, r in zip(dl.slice_yuv(g, c), ref))
+    print(f"phase 15 kernels vs plain, edge stream {name} ({f} frames, GOPs "
+          f"{route.gops}): K3 max_abs_err {e3}, K4 max_abs_err {e4} (strided views, "
+          f"step by step and whole), both pixel-exact vs ref_decode: {exact}; with "
+          f"random vectors in [-64, 63]: K3 max_abs_err {e3w}, K4 {e4w}")
+    check(exact, f"K3 or K4 on the edge stream {name} differs from ref_decode")
+    err_k3, err_k4 = max(err_k3, e3, e3w), max(err_k4, e4, e4w)
+    del per_step, out, canv, args, wild
     check(err_k3 == 0 and err_k4 == 0, "K3 or K4 disagrees with its plain version")
 
     # phase 16: the dense routes, the third main path
@@ -972,16 +1129,6 @@ def main() -> int:
     del dense_out, gop_out, gop_rgba
 
     # phase 17: times of K3 and K4 per clip, the 8K layers, the fallback
-    def kernel_device_ms(fn, reps=3):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-                 if "dense_step_kernel" in e.key)
-        return us / reps / 1e3
-
     host8 = dl.demux_host_packed(uhd)
     k3_in = {}
     for name, host in (("1080p", hosts["1080p"]), ("8K UHD", host8)):
@@ -990,31 +1137,33 @@ def main() -> int:
                                         lambda: seq_frames_dense_plain(*args))
         canv = seq_frames_dense(*args)
         err_k3 = max(err_k3, max_abs_err(canv, seq_frames_dense_plain(*args)))
-        bounds[("K3", name)] = step_bound(args[4], args[3].flatten(1), canv, args[1:6],
-                                          dense=True)
-        dev_ms = kernel_device_ms(lambda: seq_frames_dense(*args))
+        bounds[("K3", name)] = step_bound(args[4], args[2].flatten(1), args[3].flatten(1),
+                                          canv, args[1:6], dense=True)
+        dev_ms = device_ms(lambda: seq_frames_dense(*args), "dense_step_kernel")
         print(f"phase 17 K3 per clip, {name} ({args[4].shape[0]} frames): kernel "
-              f"{times[('K3', name)][0]:.3f} ms, device time {dev_ms:.3f} ms, plain "
-              f"{times[('K3', name)][1]:.3f} ms, bound {bounds[('K3', name)][0]:.4f} ms "
-              f"({bounds[('K3', name)][1]}) ({card})")
+              f"{times[('K3', name)][0]:.3f} ms (one call), profiler device time "
+              f"{dev_ms:.3f} ms (waits included), plain {times[('K3', name)][1]:.3f} ms, "
+              f"bound {bounds[('K3', name)][0]:.4f} ms ({bounds[('K3', name)][1]}) ({card})")
         k3_in[name] = (g, args, canv)
     check(err_k3 == 0, "K3 disagrees with its plain version at 8K")
     for name in ("512x384", "1080p"):
         g, f, per_step, qmul = dl.upload_gops(hosts[name], *GOPS[name], dev)
         out = torch.empty((*GOPS[name], g.chh, g.cw), dtype=torch.uint8, device=dev)
+        dims = (g.chh, g.cw, g.gly)
         times[("K4", name)] = paired_ms(
-            lambda: gop_steps(step_frames_batched, g, per_step, qmul, out),
-            lambda: gop_steps(step_frames_batched_plain, g, per_step, qmul, out))
+            lambda: step_gops(*per_step, qmul, *dims, out=out),
+            lambda: step_gops_plain(*per_step, qmul, *dims, out=out))
         n = int(np.prod(GOPS[name]))
         bounds[("K4", name)] = step_bound(
-            per_step[4].reshape(n), per_step[3].reshape(n, -1), out,
-            (*per_step[1:], qmul, out[:, 0]), dense=True)
-        dev_ms = kernel_device_ms(lambda: gop_steps(step_frames_batched, g, per_step,
-                                                    qmul, out))
-        print(f"phase 17 K4 per clip, {name} (GOP form {GOPS[name]}, {GOPS[name][1]} "
-              f"launches): kernel {times[('K4', name)][0]:.3f} ms, device time "
-              f"{dev_ms:.3f} ms, plain {times[('K4', name)][1]:.3f} ms, bound "
-              f"{bounds[('K4', name)][0]:.4f} ms ({bounds[('K4', name)][1]}) ({card})")
+            per_step[4].reshape(n), per_step[2].reshape(n, -1), per_step[3].reshape(n, -1),
+            out, (*per_step[1:], qmul, out[:, 0]), dense=True)
+        dev_ms = device_ms(lambda: step_gops(*per_step, qmul, *dims, out=out),
+                           "dense_step_kernel")
+        print(f"phase 17 K4 per clip, {name} (GOP form {GOPS[name]}, one call, "
+              f"{GOPS[name][1]} launches): kernel {times[('K4', name)][0]:.3f} ms, profiler "
+              f"device time {dev_ms:.3f} ms (waits included), plain "
+              f"{times[('K4', name)][1]:.3f} ms, bound {bounds[('K4', name)][0]:.4f} ms "
+              f"({bounds[('K4', name)][1]}) ({card})")
         del per_step, out
     info8, g8, deltas8, vals8, meta8 = host8
     d8, v8 = (torch.from_numpy(a).to(dev) for a in (deltas8.view(np.int16), vals8))
@@ -1073,9 +1222,13 @@ def main() -> int:
                      "pfv_tpu/ops/pallas/mc_kernel.py:31", dec_launches["K7"], err_k7,
                      times["K7"], bounds["K7"]),
     ]
-    for k in kernels:
-        print(f"bound {k['name']}: {k['bound_ms']:.5f} ms ({k['bound_by']}) against "
-              f"{k['ms']:.5f} ms ({card})")
+    sides = [("K1 1080p", bounds["K1"]), ("K2 1080p", bounds["K2"])] + [
+        (f"{k} {n}", bounds[(k, n)]) for k, n in (("K3", "8K UHD"), ("K3", "1080p"),
+                                                  ("K4", "512x384"), ("K4", "1080p"))] + [
+        (k, bounds[k]) for k in ("K5", "K6", "K7")]
+    for name, b in sides:
+        print(f"bound {name}: {b[0]:.5f} ms ({b[1]}): bytes {b[2]:.5f} ms, operations "
+              f"{b[3]:.5f} ms ({card})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
-// K3 and K4, the dense-input frame steps: one kernel, two entries.
+// K3 and K4, the dense-input frame steps: one kernel, two entries, each one
+// host call that launches a whole clip (K3) or the L steps of a batch of
+// GOPs (K4).
 //
 // Replaces: pfv_tpu/ops/pallas/step_kernel.py, _seq_kernel (K3, the
 // whole-clip decode, built by make_step_seq) and _step_kernel (K4, one
@@ -11,19 +13,21 @@
 // gives (dataloader.densify_pstep), for widths whose lanes do not fit the
 // units' 10-bit lane field (2*scp > 1024, wider than ~4K).
 //
-// One CTA: frame b of the batch, stripe s, 128 lanes (512 columns). Thread
-// l reads its lane's 64 coefficients, coalesced across the CTA (64 rows x
-// 128 lanes x 2 B = 16 KiB), then step_common.cuh's dequantize, iDCT,
-// merge, prediction and select, as in K1. A P-frame CTA without a coded
-// block reads no coefficient and runs no iDCT.
+// One CTA: frame b of the batch, stripe s, 128 lanes (512 columns). Its
+// threads load the 64 rows x 128 lanes of coefficients with 16-byte loads
+// (8 lanes, two macroblocks, each), skipping those of macroblocks without
+// a coded block, widen them to int32 in shared memory, then run
+// step_common.cuh's cooperative iDCT, prediction and select, as K1 does. A
+// P-frame CTA without a coded block reads no coefficient and runs no iDCT.
 //
-// The two entries: pfv_dense_seq_frame launches frame f of a clip, its
-// prediction read from frame f-1 of the output itself (stream order), one
-// launch per frame as K1; pfv_dense_step_batch launches one step for a
-// batch of B frames with their own previous canvases (the GOPs of one
-// stream side by side), grid (stripes, lane blocks, B), each batch axis
-// with its own stride so that the frames of step l of every GOP are read
-// and written in place in (G, L, ...) tensors.
+// The two entries: pfv_dense_seq_clip launches the frames of a clip, frame
+// f predicting from frame f-1 of the output itself; pfv_dense_gops
+// launches L steps for a batch of G GOPs, grid (stripes, lane blocks, G):
+// step l decodes frame l of every GOP from frame l-1 of the same GOP (from
+// `prev`, or zeros, for step 0). Each tensor has a stride per GOP and per
+// step, so the GOPs are read and written in place in (G, L, ...) tensors.
+// In both, every launch but the first uses programmatic stream
+// serialization (step_common.cuh says why the order is safe).
 //
 // Not carried over from the TPU: the band DMA and its gch/sb >= 4 ordering
 // bound (a kernel boundary per frame orders the reads), the 33-way select
@@ -32,13 +36,13 @@
 // (the batch axis of the grid). Neither |mv| <= 16 nor cw % 128 == 0 is
 // needed, and any width with row_span < 2^24 works.
 //
-// What bounds it on this card: device-memory bytes. Per frame it reads the
-// dense coefficients (2 B per coefficient slot, 2*64*row_span B: 106 MB
-// at 8K) and writes the canvas (1 B per pixel), reading the previous canvas
-// once more for P frames; the iDCT is ~30 integer operations per
-// coefficient, under the byte time. Design: coalesced coefficient rows, no
-// shared-memory accumulator (8 KiB of shared memory per CTA against K1's
-// 40 KiB), coded-block skipping, byte-coalesced stores.
+// Its least time is the bytes': per frame it reads the coefficients of
+// decoded blocks (512 B each) and writes the canvas (1 B per pixel),
+// reading the previous canvas once more for P frames; the iDCT's integer
+// operations (~26 per decoded coefficient) take less at the card's issue
+// rate, also at 8K. Design: eight threads per subblock, 16-byte
+// coefficient loads and canvas rows, coded-block skipping, and the
+// previous frame's store overlapped with this frame's iDCT.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,11 +51,11 @@
 
 namespace {
 
-using pfv::kCols;
 using pfv::kLanes;
+using pfv::kMbs;
 using pfv::kThreads;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 dense_step_kernel(const int16_t* __restrict__ coeffs, long long cstride,
                   const int8_t* __restrict__ dy, const int8_t* __restrict__ dx,
                   const uint8_t* __restrict__ hc, long long mstride,
@@ -60,77 +64,97 @@ dense_step_kernel(const int16_t* __restrict__ coeffs, long long cstride,
                   const uint8_t* __restrict__ prev, long long pstride,
                   uint8_t* __restrict__ out, long long ostride, int chh, int cw,
                   int gly, int row_span) {
-  __shared__ uint8_t res[16][kCols];
+  __shared__ __align__(16) pfv::Tile tile;
+  pfv::launch_dependents();
 
   const int s = blockIdx.x;
   const int lb = blockIdx.y;
   const long long b = blockIdx.z;
   const int tid = threadIdx.x;
   const int gch = chh >> 4, gcw = cw >> 4;
-  const int gc0 = lb * (kCols / 16);
   const bool intra = ftype[b * fstride] == 1;
   const long long maps = b * mstride + (long long)s * gcw;
 
-  if (pfv::cta_needs_residual(intra, hc + maps, gc0, gcw)) {
-    if (gc0 + (tid >> 2) < gcw) {
-      const int16_t* src = coeffs + b * cstride
-          + (long long)s * (row_span / gch) + lb * kLanes + tid;
-      const int* q = qmul + ((intra ? 0 : 2) + (s < gly ? 0 : 1)) * 64;
-      pfv::lane_residual([&](int r) { return (int)src[(long long)r * row_span]; },
-                         q, tid, res);
+  if (pfv::mark_needed(tile, intra, hc + maps, lb * kMbs, gcw)) {
+    const int16_t* src = coeffs + b * cstride + (long long)s * (row_span / gch)
+        + lb * kLanes;
+    constexpr int kChunks = kLanes / 8;  // 16-byte chunks per row
+    for (int p = tid; p < 64 * kChunks; p += kThreads) {
+      const int r = p / kChunks, c = p % kChunks;
+      if (!(tile.need[2 * c] | tile.need[2 * c + 1])) continue;
+      const int4 v = __ldcs(reinterpret_cast<const int4*>(src + (long long)r * row_span) + c);
+      int4* dst = reinterpret_cast<int4*>(&tile.acc[r][8 * c]);
+      dst[0] = make_int4((int16_t)(v.x & 0xFFFF), v.x >> 16, (int16_t)(v.y & 0xFFFF), v.y >> 16);
+      dst[1] = make_int4((int16_t)(v.z & 0xFFFF), v.z >> 16, (int16_t)(v.w & 0xFFFF), v.w >> 16);
     }
     __syncthreads();
+    pfv::residual(tile, qmul + ((intra ? 0 : 2) + (s < gly ? 0 : 1)) * 64);
   }
 
-  pfv::store_tile(res, intra, dy + maps, dx + maps, hc + maps,
+  pfv::wait_previous_grid();
+  pfv::store_tile(tile, intra, dy + maps, dx + maps, hc + maps,
                   prev ? prev + b * pstride : nullptr, out + b * ostride, s,
-                  lb * kCols, chh, cw);
-}
-
-dim3 grid_of(int chh, int cw, int batch) {
-  return dim3(chh / 16, (cw / 16 + kCols / 16 - 1) / (kCols / 16), batch);
+                  lb * pfv::kCols, chh, cw);
 }
 
 }  // namespace
 
-// K3: launches frame f of the clip on `stream`; returns cudaGetLastError().
+// K3: launches frames 0 .. frames-1 of the clip on `stream`; returns the
+// first launch's error (cudaGetLastError() after each), else 0.
 // coeffs (F, 64, row_span) i16, dy/dx (F, gch, gcw) i8, hc (F, gch, gcw)
-// u8, ftype (F) i32, qmul (2, 2, 64) i32, out (F, chh, cw) u8.
-extern "C" int pfv_dense_seq_frame(const void* coeffs, const void* dy,
-                                   const void* dx, const void* hc,
-                                   const void* ftype, const void* qmul,
-                                   void* out, int f, int chh, int cw, int gly,
-                                   int row_span, void* stream) {
+// u8, ftype (F) i32, qmul (2, 2, 64) i32, out (F, chh, cw) u8; coeffs and
+// out 16-byte aligned.
+extern "C" int pfv_dense_seq_clip(const void* coeffs, const void* dy,
+                                  const void* dx, const void* hc,
+                                  const void* ftype, const void* qmul,
+                                  void* out, int frames, int chh, int cw,
+                                  int gly, int row_span, void* stream) {
   const long long plane = (long long)chh * cw;
   const long long maps = (long long)(chh / 16) * (cw / 16);
-  const long long fr = f;
-  dense_step_kernel<<<grid_of(chh, cw, 1), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)coeffs + fr * 64 * row_span, 0,
-      (const int8_t*)dy + fr * maps, (const int8_t*)dx + fr * maps,
-      (const uint8_t*)hc + fr * maps, 0, (const int*)ftype + fr, 0,
-      (const int*)qmul, f > 0 ? (const uint8_t*)out + (fr - 1) * plane : nullptr,
-      0, (uint8_t*)out + fr * plane, 0, chh, cw, gly, row_span);
-  return (int)cudaGetLastError();
+  const dim3 grid = pfv::grid_of(chh, cw, 1);
+  for (int f = 0; f < frames; f++) {
+    const long long fr = f;
+    const cudaError_t e = pfv::launch(
+        dense_step_kernel, grid, (cudaStream_t)stream, f > 0,
+        (const int16_t*)coeffs + fr * 64 * row_span, 0LL,
+        (const int8_t*)dy + fr * maps, (const int8_t*)dx + fr * maps,
+        (const uint8_t*)hc + fr * maps, 0LL, (const int*)ftype + fr, 0LL,
+        (const int*)qmul,
+        f > 0 ? (const uint8_t*)out + (fr - 1) * plane : (const uint8_t*)nullptr,
+        0LL, (uint8_t*)out + fr * plane, 0LL, chh, cw, gly, row_span);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
-// K4: launches one step for a batch of B frames on `stream`; returns
-// cudaGetLastError(). Item b of each argument starts b * (its stride)
-// elements after its pointer: prev and out (chh, cw) u8, coeffs
-// (64, row_span) i16, dy/dx/hc (gch, gcw) i8/i8/u8 (one stride), ftype one
-// i32; qmul (2, 2, 64) i32 is shared.
-extern "C" int pfv_dense_step_batch(const void* prev, long long pstride,
-                                    const void* coeffs, long long cstride,
-                                    const void* dy, const void* dx,
-                                    const void* hc, long long mstride,
-                                    const void* ftype, long long fstride,
-                                    const void* qmul, void* out,
-                                    long long ostride, int batch, int chh,
-                                    int cw, int gly, int row_span,
-                                    void* stream) {
-  dense_step_kernel<<<grid_of(chh, cw, batch), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)coeffs, cstride, (const int8_t*)dy, (const int8_t*)dx,
-      (const uint8_t*)hc, mstride, (const int*)ftype, fstride,
-      (const int*)qmul, (const uint8_t*)prev, pstride, (uint8_t*)out, ostride,
-      chh, cw, gly, row_span);
-  return (int)cudaGetLastError();
+// K4: launches the `steps` steps of a batch of `gops` GOPs on `stream`;
+// returns the first launch's error (cudaGetLastError() after each), else
+// 0. Frame (g, l) of each argument starts g * (its GOP stride) + l * (its
+// step stride) elements after its pointer: coeffs (64, row_span) i16,
+// dy/dx/hc (gch, gcw) i8/i8/u8 (one pair of strides), ftype one i32, out
+// (chh, cw) u8. prev: GOP g's (chh, cw) u8 canvas before step 0 at
+// g * pstride, or null for zeros. qmul (2, 2, 64) i32 is shared. Canvases
+// and coeffs 16-byte aligned.
+extern "C" int pfv_dense_gops(const void* prev, long long pstride,
+                              const void* coeffs, long long cs_g, long long cs_l,
+                              const void* dy, const void* dx, const void* hc,
+                              long long ms_g, long long ms_l, const void* ftype,
+                              long long fs_g, long long fs_l, const void* qmul,
+                              void* out, long long os_g, long long os_l, int gops,
+                              int steps, int chh, int cw, int gly, int row_span,
+                              void* stream) {
+  const dim3 grid = pfv::grid_of(chh, cw, gops);
+  for (int l = 0; l < steps; l++) {
+    const long long m = l * ms_l;
+    const cudaError_t e = pfv::launch(
+        dense_step_kernel, grid, (cudaStream_t)stream, l > 0,
+        (const int16_t*)coeffs + l * cs_l, cs_g, (const int8_t*)dy + m,
+        (const int8_t*)dx + m, (const uint8_t*)hc + m, ms_g,
+        (const int*)ftype + l * fs_l, fs_g, (const int*)qmul,
+        l > 0 ? (const uint8_t*)out + (l - 1) * os_l : (const uint8_t*)prev,
+        l > 0 ? os_g : pstride, (uint8_t*)out + l * os_l, os_g, chh, cw, gly,
+        row_span);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }

@@ -1,5 +1,6 @@
 // K1, the frame-step kernel: one launch decodes one frame of the fused
-// Y|UV canvas from the tile demux's coefficient units.
+// Y|UV canvas from the tile demux's coefficient units; one host call
+// (pfv_step_clip) launches every frame of a clip.
 //
 // Replaces: pfv_tpu/ops/pallas/step_kernel.py, _seq_kernel_units (built by
 // make_step_seq_units). What it computes is the same; the TPU structure
@@ -10,20 +11,23 @@
 // For frame f, stripe s (16 canvas rows) and a block of 128 coefficient
 // lanes (32 macroblocks, 512 canvas columns), one CTA densifies the units
 // of tile t = f*gch + s (chunks coff[t]..coff[t+1] of `units`; word =
-// idx << 16 | (u16)(i16)val, idx = r << 10 | lane) into a 64 x 128 int32
-// shared-memory accumulator with atomicAdd, which is exact in any order (a
-// coefficient may span several units); the dequantize, iDCT, merge,
-// prediction and select are step_common.cuh's, shared with K3/K4. The
-// prediction reads frame f-1 of the output itself (stream order). A
+// idx << 16 | (u16)(i16)val, idx = r << 10 | lane) into the 64 x 128 int32
+// shared tile with atomicAdd, which is exact in any order (a coefficient
+// may span several units); the dequantize, iDCT, merge, prediction and
+// select are step_common.cuh's, shared with K3/K4. The prediction reads
+// frame f-1 of the output itself, after the grid-dependency wait. A
 // P-frame CTA without a coded block skips the densify and the iDCT.
 //
-// What bounds it on this card: the unit scan (each of the CTAs of a stripe
-// reads all of that tile's units and keeps its own lanes) and the canvas
-// bytes (one byte written per pixel, one read per P-frame pixel). Design:
-// lanes are split across CTAs so the accumulator is 32 KiB of static shared
-// memory (a whole 1080p stripe would need 128 KiB), units are read
-// coalesced, zero words are skipped, and stores are byte-coalesced rows.
-// Integer adds and multiplies run on uint32 so wrapping is defined.
+// Its least time is the bytes' (0.12 ms per 1080p clip; the integer
+// operations take less at the card's issue rate). Design: eight threads
+// per subblock (a short dependency chain per thread, 256 threads per
+// CTA), 16-byte canvas rows, programmatic
+// dependent launch so a frame's densify and iDCT overlap the previous
+// frame's store, and one host call per clip. Each of the CTAs of a stripe
+// still reads all of that tile's units and keeps its own lanes: lanes are
+// split across CTAs so the accumulator stays 32 KiB of static shared
+// memory (a whole 1080p stripe would need 128 KiB). Integer adds and
+// multiplies run on uint32 so wrapping is defined.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,31 +36,32 @@
 
 namespace {
 
-using pfv::kCols;
 using pfv::kLanes;
+using pfv::kMbs;
 using pfv::kThreads;
 using pfv::u32;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 step_frame_kernel(const u32* __restrict__ units, const int* __restrict__ coff,
                   const int8_t* __restrict__ dy, const int8_t* __restrict__ dx,
                   const uint8_t* __restrict__ hc, const int* __restrict__ ftype,
                   const int* __restrict__ qmul, uint8_t* __restrict__ out,
                   int f, int chh, int cw, int gly, int chunk) {
-  __shared__ int acc[64][kLanes];
-  __shared__ uint8_t res[16][kCols];
+  __shared__ __align__(16) pfv::Tile tile;
+  pfv::launch_dependents();
 
   const int s = blockIdx.x;
   const int lb = blockIdx.y;
   const int tid = threadIdx.x;
   const int gch = chh >> 4, gcw = cw >> 4;
-  const int gc0 = lb * (kCols / 16);
+  const int gc0 = lb * kMbs;
   const bool intra = ftype[f] == 1;
   const size_t plane = (size_t)chh * cw;
   const size_t maps = ((size_t)f * gch + s) * gcw;
 
-  if (pfv::cta_needs_residual(intra, hc + maps, gc0, gcw)) {
-    for (int i = tid; i < 64 * kLanes; i += kThreads) (&acc[0][0])[i] = 0;
+  if (pfv::mark_needed(tile, intra, hc + maps, gc0, gcw)) {
+    int4* acc4 = reinterpret_cast<int4*>(&tile.acc[0][0]);
+    for (int i = tid; i < 64 * kLanes / 4; i += kThreads) acc4[i] = make_int4(0, 0, 0, 0);
     __syncthreads();
     const int t = f * gch + s;
     const long long w1 = (long long)coff[t + 1] * chunk;
@@ -66,36 +71,39 @@ step_frame_kernel(const u32* __restrict__ units, const int* __restrict__ coff,
       if (val == 0) continue;
       const int idx = (int)(word >> 16);
       const int lane = (idx & 1023) - lb * kLanes;
-      if ((unsigned)lane < (unsigned)kLanes) atomicAdd(&acc[idx >> 10][lane], val);
+      if ((unsigned)lane < (unsigned)kLanes) atomicAdd(&tile.acc[idx >> 10][lane], val);
     }
     __syncthreads();
-    if (gc0 + (tid >> 2) < gcw) {
-      const int* q = qmul + ((intra ? 0 : 2) + (s < gly ? 0 : 1)) * 64;
-      pfv::lane_residual([&](int r) { return acc[r][tid]; }, q, tid, res);
-    }
-    __syncthreads();
+    pfv::residual(tile, qmul + ((intra ? 0 : 2) + (s < gly ? 0 : 1)) * 64);
   }
 
-  pfv::store_tile(res, intra, dy + maps, dx + maps, hc + maps,
+  pfv::wait_previous_grid();
+  pfv::store_tile(tile, intra, dy + maps, dx + maps, hc + maps,
                   f > 0 ? out + (size_t)(f - 1) * plane : nullptr,
-                  out + (size_t)f * plane, s, lb * kCols, chh, cw);
+                  out + (size_t)f * plane, s, lb * pfv::kCols, chh, cw);
 }
 
 }  // namespace
 
-// Launches frame f of the clip on `stream`; returns cudaGetLastError().
+// Launches frames 0 .. frames-1 of the clip on `stream`, the first as an
+// ordinary launch and the others with programmatic stream serialization;
+// returns the first launch's error (cudaGetLastError() after each), else 0.
 // units (NC, chunk) u32, coff (F*gch + 1) i32, dy/dx (F, gch, gcw) i8,
 // hc (F, gch, gcw) u8, ftype (F) i32, qmul (2, 2, 64) i32,
-// out (F, chh, cw) u8.
-extern "C" int pfv_step_frame(const void* units, const void* coff,
-                              const void* dy, const void* dx, const void* hc,
-                              const void* ftype, const void* qmul, void* out,
-                              int f, int chh, int cw, int gly, int chunk,
-                              void* stream) {
-  const dim3 grid(chh / 16, (cw / 16 + kCols / 16 - 1) / (kCols / 16));
-  step_frame_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const u32*)units, (const int*)coff, (const int8_t*)dy,
-      (const int8_t*)dx, (const uint8_t*)hc, (const int*)ftype,
-      (const int*)qmul, (uint8_t*)out, f, chh, cw, gly, chunk);
-  return (int)cudaGetLastError();
+// out (F, chh, cw) u8, 16-byte aligned.
+extern "C" int pfv_step_clip(const void* units, const void* coff,
+                             const void* dy, const void* dx, const void* hc,
+                             const void* ftype, const void* qmul, void* out,
+                             int frames, int chh, int cw, int gly, int chunk,
+                             void* stream) {
+  const dim3 grid = pfv::grid_of(chh, cw, 1);
+  for (int f = 0; f < frames; f++) {
+    const cudaError_t e = pfv::launch(
+        step_frame_kernel, grid, (cudaStream_t)stream, f > 0, (const u32*)units,
+        (const int*)coff, (const int8_t*)dy, (const int8_t*)dx,
+        (const uint8_t*)hc, (const int*)ftype, (const int*)qmul, (uint8_t*)out,
+        f, chh, cw, gly, chunk);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }

@@ -33,8 +33,7 @@ import torch
 from pfv_torch import runtime
 from pfv_torch.dec import FrameDecoder, frame_packets
 from pfv_torch.frame import Geometry, geometry, slice_yuv
-from pfv_torch.kernels.dense_step import (MAX_ROW_SPAN, seq_frames_dense,
-                                          step_frames_batched)
+from pfv_torch.kernels.dense_step import MAX_ROW_SPAN, seq_frames_dense, step_gops
 from pfv_torch.kernels.rgba import canvas_rgba
 from pfv_torch.kernels.step import lanes_per_stripe, step_frames
 from pfv_torch.ops.quant import DCT_SCALE_FACTOR, INV_ZIGZAG_TABLE
@@ -344,17 +343,11 @@ def upload_gops(host, n_gops: int, gop_len: int, device="cuda"):
 
 
 def _gops_canvases(host, n_gops: int, gop_len: int, device):
-    """The "gops" route: L launches of K4, step l decoding frame l of every
-    GOP from frame l-1 of the same GOP; the canvases un-stacked and cut to
-    F."""
+    """The "gops" route: one call of K4 (L launches), step l decoding frame
+    l of every GOP from frame l-1 of the same GOP; the canvases un-stacked
+    and cut to F."""
     g, f, per_step, qmul = upload_gops(host, n_gops, gop_len, device)
-    out = torch.empty((n_gops, gop_len, g.chh, g.cw), dtype=torch.uint8,
-                      device=qmul.device)
-    prev = torch.zeros((n_gops, g.chh, g.cw), dtype=torch.uint8, device=qmul.device)
-    for step in range(gop_len):
-        step_frames_batched(prev, *(t[:, step] for t in per_step), qmul, g.chh,
-                            g.cw, g.gly, out=out[:, step])
-        prev = out[:, step]
+    out = step_gops(*per_step, qmul, g.chh, g.cw, g.gly)
     return out.view(n_gops * gop_len, g.chh, g.cw)[:f]
 
 

@@ -2,16 +2,17 @@
 their plain versions.
 
 Both decode frames of the fused canvas layout as K1 does, from dense
-coefficients (B, 64, row_span) int16 (row r = row-major slot, column
+coefficients (..., 64, row_span) int16 (row r = row-major slot, column
 s*2*scp + lane of stripe s; `dataloader.densify_pstep` makes them):
-- `seq_frames_dense` (K3) decodes a whole clip, one launch per frame on
-  the current stream; frame f predicts from canvas f-1 of its own output;
-- `step_frames_batched` (K4) makes one step for a batch of B frames, each
-  from its own previous canvas (the GOPs of one stream side by side), one
-  launch. Its batch axis may be strided, so step l of (G, L, ...) tensors is
-  passed as views.
-A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-or raises.
+- `seq_frames_dense` (K3) decodes a whole clip, one host call and one
+  launch per frame; frame f predicts from canvas f-1 of its own output;
+- `step_gops` (K4) decodes G GOPs of L frames side by side, one host call
+  and one launch per step of all G GOPs; the leading (G, L) axes may be
+  strided, so the GOPs are read and written in place; a single step is a
+  call on [:, l:l+1] views with `prev`.
+Each call checks its inputs once; launches after a call's first use
+programmatic dependent launch. A CPU tensor goes to the plain version; a
+CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,15 +23,35 @@ from pfv_torch.kernels.step import lanes_per_stripe, reconstruct
 
 MAX_ROW_SPAN = 1 << 24
 MAX_BATCH = 65535  # the grid's z extent
+ALIGN = 16  # bytes: 16-byte coefficient loads and canvas rows
 
 
-def _items_contiguous(t: torch.Tensor) -> bool:
-    """Each t[b] is contiguous; the batch axis may have any stride."""
+def _items_contiguous(t: torch.Tensor, lead: int) -> bool:
+    """Each item t[i] (i over the `lead` leading axes) is contiguous; the
+    leading axes may have any stride."""
     want, step = [], 1
-    for n in reversed(t.shape[1:]):
+    for n in reversed(t.shape[lead:]):
         want.append(step)
         step *= n
-    return list(t.stride()[1:]) == want[::-1]
+    return list(t.stride()[lead:]) == want[::-1]
+
+
+def _aligned(t: torch.Tensor, lead: int) -> bool:
+    """Every item of t starts on an ALIGN-byte boundary."""
+    strides = t.stride()[:lead]
+    return t.data_ptr() % ALIGN == 0 and all(
+        s * t.element_size() % ALIGN == 0 for n, s in zip(t.shape, strides) if n > 1)
+
+
+def _distinct_items(t: torch.Tensor, lead: int) -> bool:
+    """No two items of t (over the leading axes) share a byte."""
+    dims = sorted((s, n) for n, s in zip(t.shape[:lead], t.stride()[:lead]) if n > 1)
+    extent = t[(0,) * lead].numel()
+    for s, n in dims:
+        if s < extent:
+            return False
+        extent = s * n
+    return True
 
 
 def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -50,32 +71,52 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def _check(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int, gly: int,
            prev=None, out=None):
-    b = ftype.shape[0] if ftype.dim() == 1 else -1
+    """Check a call once, whatever its number of frames: the batch shape
+    is ftype's, (F,) or (G, L). Every item contiguous, the maps sharing
+    their batch strides, coefficients and canvases 16-byte aligned, the
+    canvases of `out` distinct and apart from `prev` (G, chh, cw), all on
+    one device. Returns row_span."""
+    lead = ftype.dim()
+    bs = tuple(ftype.shape)
     gch, gcw = chh // 16, cw // 16
     if chh % 16 or cw % 16 or chh <= 0 or cw <= 0 or not 0 <= gly <= gch:
         raise ValueError(f"canvas {chh}x{cw} with {gly} luma stripes is not "
                          "whole 16x16 blocks")
+    if lead not in (1, 2):
+        raise ValueError(f"ftype must be (F,) or (G, L), got {bs}")
     row_span = gch * lanes_per_stripe(cw)
     if row_span >= MAX_ROW_SPAN:
         raise ValueError(f"row span {row_span} of a {cw}-wide canvas is not "
                          f"below {MAX_ROW_SPAN}")
-    want = [(coeffs, torch.int16, (b, 64, row_span)), (dy, torch.int8, (b, gch, gcw)),
-            (dx, torch.int8, (b, gch, gcw)), (hc, torch.uint8, (b, gch, gcw)),
-            (ftype, torch.int32, (b,)), (qmul, torch.int32, (2, 2, 64))]
-    want += [(t, torch.uint8, (b, chh, cw)) for t in (prev, out) if t is not None]
-    for t, dtype, shape in want:
+    want = [(coeffs, torch.int16, bs + (64, row_span), lead),
+            (dy, torch.int8, bs + (gch, gcw), lead),
+            (dx, torch.int8, bs + (gch, gcw), lead),
+            (hc, torch.uint8, bs + (gch, gcw), lead),
+            (ftype, torch.int32, bs, lead), (qmul, torch.int32, (2, 2, 64), 0)]
+    if prev is not None:
+        want.append((prev, torch.uint8, bs[:1] + (chh, cw), 1))
+    if out is not None:
+        want.append((out, torch.uint8, bs + (chh, cw), lead))
+    for t, dtype, shape, n in want:
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"expected {dtype} {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-        if t.device != coeffs.device or not _items_contiguous(t):
+        if t.device != coeffs.device or not _items_contiguous(t, n):
             raise ValueError("inputs must be on one device, each batch item "
                              "contiguous")
-    if not qmul.is_contiguous() or dy.stride(0) != dx.stride(0) or dy.stride(0) != hc.stride(0):
-        raise ValueError("dy, dx and hc must share their batch stride")
-    if b > MAX_BATCH:
-        raise ValueError(f"batch of {b} frames is above {MAX_BATCH}")
-    if prev is not None and b and _overlap(prev, out):
-        raise ValueError("out overlaps prev: a frame step never runs in place")
+    if dy.stride()[:lead] != dx.stride()[:lead] or dy.stride()[:lead] != hc.stride()[:lead]:
+        raise ValueError("dy, dx and hc must share their batch strides")
+    for t, _, _, n in want[:1] + want[6:]:
+        if not _aligned(t, n):
+            raise ValueError(f"every item must start on a {ALIGN}-byte boundary")
+    if bs[0] > MAX_BATCH:
+        raise ValueError(f"batch of {bs[0]} frames is above {MAX_BATCH}")
+    if out is not None and out.numel() and not _distinct_items(out, lead):
+        raise ValueError("two canvases of out share bytes")
+    if prev is not None and out is not None and out.numel():
+        steps = [out[:, l] for l in range(bs[1])] if lead == 2 else [out]
+        if any(_overlap(prev, o) for o in steps):
+            raise ValueError("out overlaps prev: a frame step never runs in place")
     return row_span
 
 
@@ -85,9 +126,20 @@ def _stripes(frame_coeffs, chh: int) -> torch.Tensor:
     return frame_coeffs.view(64, gch, -1).transpose(0, 1).contiguous().to(torch.int32)
 
 
+def _lib_stream(t: torch.Tensor):
+    """The kernel library and t's current stream; raises unless t is on a
+    CUDA device."""
+    if t.device.type != "cuda":
+        raise ValueError(f"no dense step kernel for device {t.device}")
+    from pfv_torch.kernels import build
+
+    return build.lib(), torch.cuda.current_stream(t.device).cuda_stream
+
+
 def seq_frames_dense(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int,
                      gly: int) -> torch.Tensor:
-    """Decode the clip to (F, chh, cw) u8 canvases.
+    """Decode the clip to (F, chh, cw) u8 canvases: one host call, F
+    launches.
 
     coeffs (F, 64, row_span) int16, row_span = gch*2*scp; dy, dx
     (F, gch, gcw) int8 and hc (F, gch, gcw) u8: per-block motion and coded
@@ -95,25 +147,22 @@ def seq_frames_dense(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int,
     qmul (2, 2, 64) int32 multipliers [I/P][luma/chroma][row-major r]; gly:
     luma stripes. Frame 0 must be intra. All contiguous.
     """
+    if ftype.dim() != 1:
+        raise ValueError(f"ftype must be (F,), got {tuple(ftype.shape)}")
     row_span = _check(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly)
     if not all(t.is_contiguous() for t in (coeffs, dy, dx, hc, ftype)):
         raise ValueError("all inputs must be contiguous")
     if coeffs.device.type == "cpu":
         return seq_frames_dense_plain(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly)
-    if coeffs.device.type != "cuda":
-        raise ValueError(f"no dense step kernel for device {coeffs.device}")
-    from pfv_torch.kernels import build
-
-    lib = build.lib()
-    out = torch.empty((ftype.shape[0], chh, cw), dtype=torch.uint8,
-                      device=coeffs.device)
-    stream = torch.cuda.current_stream(coeffs.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (coeffs, dy, dx, hc, ftype, qmul, out)]
-    for f in range(ftype.shape[0]):
-        rc = lib.pfv_dense_seq_frame(*ptrs, f, chh, cw, gly, row_span, stream)
-        if rc:
-            raise RuntimeError(f"dense step kernel launch failed: CUDA error {rc}")
-        seq_frames_dense.launches += 1
+    lib, stream = _lib_stream(coeffs)
+    frames = ftype.shape[0]
+    out = torch.empty((frames, chh, cw), dtype=torch.uint8, device=coeffs.device)
+    rc = lib.pfv_dense_seq_clip(*(t.data_ptr() for t in (coeffs, dy, dx, hc, ftype,
+                                                        qmul, out)),
+                                frames, chh, cw, gly, row_span, stream)
+    if rc:
+        raise RuntimeError(f"dense step kernel launch failed: CUDA error {rc}")
+    seq_frames_dense.launches += frames
     return out
 
 
@@ -131,47 +180,71 @@ def seq_frames_dense_plain(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int,
     return out
 
 
-def step_frames_batched(prev, coeffs, dy, dx, hc, ftype, qmul, chh: int,
-                        cw: int, gly: int, out=None) -> torch.Tensor:
-    """One frame step for each of B frames -> (B, chh, cw) u8 canvases,
-    written into `out` when it is given (it must not overlap `prev`).
+def step_gops(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int, gly: int,
+              prev=None, out=None) -> torch.Tensor:
+    """Decode G GOPs of L frames side by side -> (G, L, chh, cw) u8
+    canvases, written into `out` when it is given: one host call, L
+    launches. Step l decodes frame l of every GOP from frame l-1 of the
+    same GOP; step 0 from `prev` (G, chh, cw) u8, or from zeros.
 
-    prev (B, chh, cw) u8: each frame's previous canvas; the other inputs as
-    `seq_frames_dense`'s with B frames. The batch axis of every tensor but
-    qmul may be strided; each item is contiguous.
+    coeffs (G, L, 64, row_span) int16, dy, dx, hc (G, L, gch, gcw), ftype
+    (G, L) int32: as `seq_frames_dense`'s per frame. The two leading axes
+    of every tensor but qmul may be strided (dy, dx and hc alike); each
+    frame is contiguous, and coefficients and canvases 16-byte aligned.
     """
+    if ftype.dim() != 2:
+        raise ValueError(f"ftype must be (G, L), got {tuple(ftype.shape)}")
     if out is None:
-        out = torch.empty((ftype.shape[0], chh, cw), dtype=torch.uint8,
+        out = torch.empty(tuple(ftype.shape) + (chh, cw), dtype=torch.uint8,
                           device=coeffs.device)
     row_span = _check(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly, prev, out)
     if coeffs.device.type == "cpu":
-        return step_frames_batched_plain(prev, coeffs, dy, dx, hc, ftype, qmul,
-                                         chh, cw, gly, out)
-    if coeffs.device.type != "cuda":
-        raise ValueError(f"no dense step kernel for device {coeffs.device}")
-    from pfv_torch.kernels import build
-
-    lib = build.lib()
-    batch = ftype.shape[0]
-    if batch:
-        rc = lib.pfv_dense_step_batch(
-            prev.data_ptr(), prev.stride(0), coeffs.data_ptr(), coeffs.stride(0),
-            dy.data_ptr(), dx.data_ptr(), hc.data_ptr(), dy.stride(0),
-            ftype.data_ptr(), ftype.stride(0), qmul.data_ptr(), out.data_ptr(),
-            out.stride(0), batch, chh, cw, gly, row_span,
-            torch.cuda.current_stream(coeffs.device).cuda_stream)
+        return step_gops_plain(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly,
+                               prev, out)
+    lib, stream = _lib_stream(coeffs)
+    gops, steps = ftype.shape
+    if gops and steps:
+        rc = lib.pfv_dense_gops(
+            prev.data_ptr() if prev is not None else None,
+            prev.stride(0) if prev is not None else 0,
+            coeffs.data_ptr(), *coeffs.stride()[:2], dy.data_ptr(), dx.data_ptr(),
+            hc.data_ptr(), *dy.stride()[:2], ftype.data_ptr(), *ftype.stride(),
+            qmul.data_ptr(), out.data_ptr(), *out.stride()[:2], gops, steps, chh,
+            cw, gly, row_span, stream)
         if rc:
             raise RuntimeError(f"dense step kernel launch failed: CUDA error {rc}")
-        step_frames_batched.launches += 1
+        step_gops.launches += steps
     return out
 
 
-step_frames_batched.launches = 0
+step_gops.launches = 0
+
+
+def step_gops_plain(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int, gly: int,
+                    prev=None, out=None) -> torch.Tensor:
+    """The plain PyTorch version of `step_gops`, step by step."""
+    gops, steps = ftype.shape
+    if out is None:
+        out = torch.empty((gops, steps, chh, cw), dtype=torch.uint8,
+                          device=coeffs.device)
+    if prev is None:
+        prev = torch.zeros((gops, chh, cw), dtype=torch.uint8, device=coeffs.device)
+    for l in range(steps):
+        step_frames_batched_plain(prev, coeffs[:, l], dy[:, l], dx[:, l], hc[:, l],
+                                  ftype[:, l], qmul, chh, cw, gly, out[:, l])
+        prev = out[:, l]
+    return out
 
 
 def step_frames_batched_plain(prev, coeffs, dy, dx, hc, ftype, qmul, chh: int,
                               cw: int, gly: int, out=None) -> torch.Tensor:
-    """The plain PyTorch version of `step_frames_batched`."""
+    """One frame step for each of B frames -> (B, chh, cw) u8 canvases,
+    written into `out` when it is given: the plain version of one step of
+    `step_gops`, each frame from its explicit previous canvas prev[b].
+
+    prev (B, chh, cw) u8; the other inputs as `seq_frames_dense`'s with B
+    frames.
+    """
     if out is None:
         out = torch.empty((ftype.shape[0], chh, cw), dtype=torch.uint8,
                           device=coeffs.device)

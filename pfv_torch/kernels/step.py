@@ -1,10 +1,11 @@
 """K1, the frame-step kernel (csrc/step_kernel.cu), and its plain version.
 
 `step_frames` decodes a whole clip into (F, chh, cw) u8 canvases of the
-fused layout (Y on top, U | V side by side below), one kernel launch per
-frame on the current stream; frame f reads canvas f-1 of the output it is
-writing. A CPU tensor goes to `step_frames_plain`, the same computation in
-plain PyTorch ops; a CUDA tensor launches the kernel or raises.
+fused layout (Y on top, U | V side by side below): one host call, one
+kernel launch per frame on the current stream; frame f reads canvas f-1 of
+the output it is writing. A CPU tensor goes to `step_frames_plain`, the
+same computation in plain PyTorch ops; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def step_frames(units, coff, dy, dx, hc, ftype, qmul, chh: int, cw: int,
     and hc (F, gch, gcw) u8: per-block motion and coded maps in canvas
     order; ftype (F,) int32 (1 = intra, anything else P); qmul (2, 2, 64)
     int32 dequant multipliers [I/P][luma/chroma][row-major r]; gly: luma
-    stripes. Frame 0 must be intra.
+    stripes. Frame 0 must be intra. The frames after the first launch with
+    programmatic dependent launch.
     """
     _check(units, coff, dy, dx, hc, ftype, qmul, chh, cw)
     if units.device.type == "cpu":
@@ -63,15 +65,14 @@ def step_frames(units, coff, dy, dx, hc, ftype, qmul, chh: int, cw: int,
     from pfv_torch.kernels import build
 
     lib = build.lib()
-    out = torch.empty((ftype.shape[0], chh, cw), dtype=torch.uint8,
-                      device=units.device)
+    frames = ftype.shape[0]
+    out = torch.empty((frames, chh, cw), dtype=torch.uint8, device=units.device)
     stream = torch.cuda.current_stream(units.device).cuda_stream
     ptrs = [t.data_ptr() for t in (units, coff, dy, dx, hc, ftype, qmul, out)]
-    for f in range(ftype.shape[0]):
-        rc = lib.pfv_step_frame(*ptrs, f, chh, cw, gly, units.shape[1], stream)
-        if rc:
-            raise RuntimeError(f"step kernel launch failed: CUDA error {rc}")
-        step_frames.launches += 1
+    rc = lib.pfv_step_clip(*ptrs, frames, chh, cw, gly, units.shape[1], stream)
+    if rc:
+        raise RuntimeError(f"step kernel launch failed: CUDA error {rc}")
+    step_frames.launches += frames
     return out
 
 

@@ -33,12 +33,15 @@ def container(width: int, height: int, qtables: np.ndarray, packets,
 
 
 def random_stream(width: int, height: int, frames: int, seed: int,
-                  keyframes: int = 1 << 30, fps: int = 30) -> bytes:
+                  keyframes: int = 1 << 30, fps: int = 30, max_mv: int = 12,
+                  coded=(0.5,)) -> bytes:
     """Frames of seeded random sparse coefficients (about one slot in twenty
     nonzero, |v| <= 60): an I-frame every `keyframes` frames from the first,
-    P-frames between them with random coded flags and random motion vectors
-    of |v| <= 12 that keep every window inside its padded plane. Four random
-    q-tables; I-frames use (0, 1, 1), P-frames (2, 3, 3)."""
+    P-frames between them with random coded flags (P-frame k codes a block
+    with probability coded[k % len(coded)]) and random motion vectors of
+    |v| <= max_mv (at most 63, the format's), cut so that every window stays
+    inside its padded plane, as the demux demands. Four random q-tables;
+    I-frames use (0, 1, 1), P-frames (2, 3, 3)."""
     rng = np.random.default_rng(seed)
     g = geometry(width, height)
     qtables = rng.integers(1, 40, size=(4, 64))
@@ -47,19 +50,35 @@ def random_stream(width: int, height: int, frames: int, seed: int,
     lo_x, hi_x, lo_y, hi_y = (np.concatenate(p) for p in zip(*[
         (-bx, w - 16 - bx, -by, h - 16 - by)
         for (h, w), (by, bx) in ((hw, block_origins(*hw)) for hw in planes)]))
-    packets = []
+    packets, n_p = [], 0
     for f in range(frames):
         coeffs = rng.integers(-60, 61, size=(g.nb, 256))
         coeffs[rng.random(coeffs.shape) > 0.05] = 0
         if f % keyframes == 0:
             packets.append((1, runtime.encode_iframe_payload(coeffs, (0, 1, 1))))
             continue
-        mvx = np.clip(rng.integers(-12, 13, g.nb), lo_x, hi_x).astype(np.int8)
-        mvy = np.clip(rng.integers(-12, 13, g.nb), lo_y, hi_y).astype(np.int8)
-        hc = (rng.random(g.nb) < 0.5).astype(np.uint8)
+        mvx = np.clip(rng.integers(-max_mv, max_mv + 1, g.nb), lo_x, hi_x).astype(np.int8)
+        mvy = np.clip(rng.integers(-max_mv, max_mv + 1, g.nb), lo_y, hi_y).astype(np.int8)
+        hc = (rng.random(g.nb) < coded[n_p % len(coded)]).astype(np.uint8)
+        n_p += 1
         packets.append((2, runtime.encode_pframe_payload(coeffs, mvx, mvy, hc,
                                                          (2, 3, 3))))
     return container(width, height, qtables, packets, fps)
+
+
+# Streams at the frame steps' edges: widths whose last 512-column block is
+# partial (528, 1936), K1's widest (4096), the narrowest dense width (4112),
+# height 16, vectors as long as the planes allow, and P-frames with no coded
+# block, with every block coded, and with half coded, in turn.
+EDGE_STREAMS = {"528x48": (528, 48, 7), "1936x32": (1936, 32, 6),
+                "4096x16": (4096, 16, 6), "4112x16": (4112, 16, 8)}
+
+
+def edge_stream(name: str, seed: int = 41) -> bytes:
+    """The EDGE_STREAMS stream `name`: a keyframe every 4 frames, |mv| up
+    to 63, P-frames coding no block, every block, then half of them."""
+    w, h, f = EDGE_STREAMS[name]
+    return random_stream(w, h, f, seed, keyframes=4, max_mv=63, coded=(0.0, 1.0, 0.5))
 
 
 def synth_rgb_frame(t: int, width: int, height: int, seed: int = 1234) -> np.ndarray:

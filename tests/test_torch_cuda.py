@@ -22,8 +22,8 @@ from pfv_torch import runtime, synth
 from pfv_torch.dec import Decoder, split_packets
 from pfv_torch.encoding import encode_video
 from pfv_torch.kernels.dense_step import (seq_frames_dense, seq_frames_dense_plain,
-                                          step_frames_batched,
-                                          step_frames_batched_plain)
+                                          step_frames_batched_plain, step_gops,
+                                          step_gops_plain)
 from pfv_torch.kernels.fdct import fdct_blocks, fdct_blocks_plain
 from pfv_torch.kernels.idct import decode_blocks, decode_blocks_plain
 from pfv_torch.kernels.mc import mc_reconstruct, mc_reconstruct_plain
@@ -219,21 +219,29 @@ def test_k4_matches_plain_over_gops(cuda):
     assert f == 7 and per_step[4][2].tolist() == [1, 2, 2]
     prev = torch.randint(0, 256, (3, g.chh, g.cw), dtype=torch.uint8, device=cuda)
     out = torch.empty((3, 3, g.chh, g.cw), dtype=torch.uint8, device=cuda)
-    before = step_frames_batched.launches
+    first = prev.clone()
+    before = step_gops.launches
     for l in range(3):
+        step_gops(*(t[:, l:l + 1] for t in per_step), qmul, g.chh, g.cw, g.gly,
+                  prev=prev, out=out[:, l:l + 1])
         args = (prev, *(t[:, l] for t in per_step), qmul, g.chh, g.cw, g.gly)
-        step_frames_batched(*args, out=out[:, l])
         assert torch.equal(out[:, l], step_frames_batched_plain(*args))
         prev = out[:, l]
-    assert step_frames_batched.launches - before == 3
+    assert step_gops.launches - before == 3
     canv = out.view(9, g.chh, g.cw)[:7]
     for p, r in zip(tdl.slice_yuv(g, canv), runtime.ref_decode(data)[1:4]):
         assert np.array_equal(p.cpu().numpy(), r)
+    # the whole-GOP entry: one call, three launches, the same canvases
+    whole = step_gops(*per_step, qmul, g.chh, g.cw, g.gly, prev=first)
+    assert step_gops.launches - before == 6
+    assert torch.equal(whole, out)
+    assert torch.equal(whole, step_gops_plain(*per_step, qmul, g.chh, g.cw, g.gly,
+                                              prev=first))
 
 
 def test_dense_routes_launch_k3_and_k4_only(cuda):
     counters = (step_frames, decode_blocks, mc_reconstruct, seq_frames_dense,
-                step_frames_batched)
+                step_gops)
     for key, kind, k3, k4 in ((1 << 30, "dense", 6, 0), (4, "gops", 0, 4)):
         data = synth.random_stream(4112, 64, 6, seed=33, keyframes=key)
         assert tdl.choose_route(data).kind == kind
@@ -241,4 +249,55 @@ def test_dense_routes_launch_k3_and_k4_only(cuda):
         got = tdl.decode_video_yuv(data, device="cuda")
         assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 0, k3, k4]
         for p, r in zip(got, runtime.ref_decode(data)[1:4]):
+            assert np.array_equal(p.cpu().numpy(), r)
+
+
+def _random_vectors(maps, seed):
+    """The (dy, dx, hc) maps with dy and dx replaced by random vectors of
+    the 7-bit field's whole range, so that windows leave the canvas on
+    every side."""
+    rng = np.random.default_rng(seed)
+    dy, dx, hc = maps
+    rand = [torch.from_numpy(rng.integers(-64, 64, dy.shape).astype(np.int8)).to(dy.device)
+            for _ in range(2)]
+    return rand[0], rand[1], hc
+
+
+@pytest.mark.parametrize("name", sorted(synth.EDGE_STREAMS))
+def test_frame_steps_exact_at_the_edges(cuda, name):
+    """K1 (widths up to 4096) or K3 and K4 (4112) against their plain
+    versions at max_abs_err 0 and the reference, on the edge streams; then
+    with random vectors that leave the canvas (the plain versions only)."""
+    data = synth.edge_stream(name)
+    ref = runtime.ref_decode(data)[1:4]
+    route = tdl.choose_route(data)
+    outs = []
+    if route.kind == "units":
+        g, args = tdl.upload(route.host, cuda)
+        dims = (g.chh, g.cw, g.gly)
+        got = step_frames(*args, *dims)
+        assert torch.equal(got, step_frames_plain(*args, *dims))
+        outs.append(got)
+        wild = (*args[:2], *_random_vectors(args[2:5], 5), *args[5:])
+        assert torch.equal(step_frames(*wild, *dims), step_frames_plain(*wild, *dims))
+    else:
+        assert route.kind == "gops"
+        g, (coeffs, mvx, mvy, hc, ftype, qmul) = tdl.upload_packed(route.host, device=cuda)
+        maps = tdl.block_maps(g, mvx, mvy, hc)
+        dims = (g.chh, g.cw, g.gly)
+        got = seq_frames_dense(coeffs, *maps, ftype, qmul, *dims)
+        assert torch.equal(got, seq_frames_dense_plain(coeffs, *maps, ftype, qmul, *dims))
+        outs.append(got)
+        wild = (coeffs, *_random_vectors(maps, 6), ftype, qmul, *dims)
+        assert torch.equal(seq_frames_dense(*wild), seq_frames_dense_plain(*wild))
+        _, f, per_step, qmul = tdl.upload_gops(route.host, *route.gops, cuda)
+        gop = step_gops(*per_step, qmul, *dims)
+        assert torch.equal(gop, step_gops_plain(*per_step, qmul, *dims))
+        outs.append(gop.view(-1, g.chh, g.cw)[:f])
+        prev = torch.randint(0, 256, (route.gops[0], g.chh, g.cw), dtype=torch.uint8,
+                             device=cuda)
+        wild = (per_step[0], *_random_vectors(per_step[1:4], 7), per_step[4], qmul, *dims)
+        assert torch.equal(step_gops(*wild, prev=prev), step_gops_plain(*wild, prev=prev))
+    for canv in outs:
+        for p, r in zip(tdl.slice_yuv(g, canv), ref):
             assert np.array_equal(p.cpu().numpy(), r)

@@ -19,8 +19,8 @@ import torch
 
 from pfv_torch import dataloader as tdl
 from pfv_torch.kernels.dense_step import (seq_frames_dense, seq_frames_dense_plain,
-                                          step_frames_batched,
-                                          step_frames_batched_plain)
+                                          step_frames_batched_plain, step_gops,
+                                          step_gops_plain)
 from pfv_tpu import dataloader as jdl
 from pfv_tpu import runtime
 from pfv_tpu.encoding import encode_video
@@ -56,6 +56,14 @@ def clip():
     return dict(data=data, host=host, g=g, coeffs=coeffs, maps=maps, ftype=ftype_t,
                 qmul=qmul, jdense=jdense, jmaps=(dyc, dxc, hcc, stab), jq=jq,
                 jftype=ftype.astype(jnp.int32))
+
+
+def _one_step(prev, coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly, out=None):
+    """One step of `step_gops` for B frames, each from prev[b]: a call on
+    [:, l:l+1] views of (B, 1, ...) tensors."""
+    return step_gops(*(t.unsqueeze(1) for t in (coeffs, dy, dx, hc, ftype)), qmul,
+                     chh, cw, gly, prev=prev,
+                     out=None if out is None else out.unsqueeze(1))[:, 0]
 
 
 def test_pstep_tables_match_jax():
@@ -114,15 +122,17 @@ def test_k4_plain_batched_over_gops_matches_make_step(clip):
     # a P-frame reads its explicit previous canvas: random for the first step
     prev = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (n_gops, g.chh, g.cw), dtype=np.uint8))
-    before = step_frames_batched.launches
+    before = step_gops.launches
     for l in range(KEY):
+        one = slice(l, l + 1)
+        got = step_gops(coeffs[:, one], dy[:, one], dx[:, one], hc[:, one], ft[:, one],
+                        clip["qmul"], g.chh, g.cw, g.gly, prev=prev, out=out[:, one])
+        assert got.data_ptr() == out[:, l].data_ptr()
         args = (prev, coeffs[:, l], dy[:, l], dx[:, l], hc[:, l], ft[:, l],
                 clip["qmul"], g.chh, g.cw, g.gly)
-        got = step_frames_batched(*args, out=out[:, l])
-        assert got.data_ptr() == out[:, l].data_ptr()
         assert torch.equal(step_frames_batched_plain(*args), out[:, l])
         prev = out[:, l]
-    assert step_frames_batched.launches == before
+    assert step_gops.launches == before
     assert np.array_equal(out.view(FRAMES, g.chh, g.cw).numpy(), np.stack(want))
 
 
@@ -142,10 +152,10 @@ def test_k4_rejects_what_the_kernel_cannot_take(clip):
         args = list(good)
         args[i] = t
         with pytest.raises(ValueError):
-            step_frames_batched(*args, g.chh, g.cw, g.gly)
+            _one_step(*args, g.chh, g.cw, g.gly)
     for out in (canv[:2], canv[1:]):  # in place, or overlapping by one canvas
         with pytest.raises(ValueError, match="overlaps"):
-            step_frames_batched(*good, g.chh, g.cw, g.gly, out=out)
+            _one_step(*good, g.chh, g.cw, g.gly, out=out)
     with pytest.raises(ValueError):
         seq_frames_dense(clip["coeffs"][:, :, ::2], *clip["maps"], clip["ftype"],
                          clip["qmul"], g.chh, g.cw, g.gly)
@@ -178,9 +188,9 @@ def _jax_gops(data, want):
 
 @pytest.mark.parametrize("want", ["yuv", "rgba", "checksums"])
 def test_decode_packed_gops_matches_jax(clip, want):
-    before = step_frames_batched.launches
+    before = step_gops.launches
     got = tdl.decode_packed_gops(clip["host"], 2, KEY, want, device="cpu")
-    assert step_frames_batched.launches == before
+    assert step_gops.launches == before
     ref = _jax_gops(clip["data"], want)
     if want == "yuv":
         for p, r in zip(got, ref):
@@ -196,3 +206,107 @@ def test_decode_packed_gops_rejects_a_wrong_gop_shape(clip):
     for g, l in ((2, 3), (1, KEY), (3, KEY)):
         with pytest.raises(ValueError):
             tdl.decode_packed_gops(clip["host"], g, l, "yuv", device="cpu")
+
+
+def test_k4_whole_gops_plain_matches_make_step_under_vmap_of_scan(clip):
+    """`step_gops` over (G, L, ...) tensors, each GOP from a random canvas,
+    against make_step run as a lax.scan over the steps under vmap over the
+    GOPs."""
+    import jax
+
+    g = clip["g"]
+    n_gops = FRAMES // KEY
+    dyc, dxc, hcc, stab = clip["jmaps"]
+    step = make_step(g.chh, g.cw, g.gly, interpret=True, ladder="plain")
+    prev = np.random.default_rng(1).integers(0, 256, (n_gops, g.chh, g.cw),
+                                             dtype=np.uint8)
+
+    def gop(canvas, *xs):
+        def body(c, x):
+            c = step(c, *x, clip["jq"])
+            return c, c
+        return jax.lax.scan(body, canvas, xs)[1]
+
+    per_gop = [jnp.reshape(a, (n_gops, KEY) + a.shape[1:]) for a in
+               (clip["jdense"], dyc, dxc, hcc, clip["jftype"], stab)]
+    want = np.asarray(jax.vmap(gop)(jnp.asarray(prev), *per_gop))
+    coeffs = clip["coeffs"].view(n_gops, KEY, 64, -1)
+    maps = [m.view(n_gops, KEY, g.gch, g.gcw) for m in clip["maps"]]
+    args = (coeffs, *maps, clip["ftype"].view(n_gops, KEY), clip["qmul"], g.chh,
+            g.cw, g.gly)
+    before = step_gops.launches
+    got = step_gops(*args, prev=torch.from_numpy(prev))
+    assert step_gops.launches == before
+    assert got.shape == want.shape and np.array_equal(got.numpy(), want)
+    # without prev, step 0 predicts from zeros; into a given out, in place
+    out = torch.empty((n_gops, KEY, g.chh, g.cw), dtype=torch.uint8)
+    assert step_gops(*args, out=out).data_ptr() == out.data_ptr()
+    zeros = np.asarray(jax.vmap(gop)(jnp.zeros_like(jnp.asarray(prev)), *per_gop))
+    assert np.array_equal(out.numpy(), zeros)
+    assert torch.equal(step_gops_plain(*args), out)
+
+
+def _gop_args(clip):
+    g = clip["g"]
+    n_gops = FRAMES // KEY
+    canv = torch.zeros((n_gops, g.chh, g.cw), dtype=torch.uint8)
+    return dict(coeffs=clip["coeffs"].view(n_gops, KEY, 64, -1),
+                dy=clip["maps"][0].view(n_gops, KEY, g.gch, g.gcw),
+                dx=clip["maps"][1].view(n_gops, KEY, g.gch, g.gcw),
+                hc=clip["maps"][2].view(n_gops, KEY, g.gch, g.gcw),
+                ftype=clip["ftype"].view(n_gops, KEY), qmul=clip["qmul"], prev=canv,
+                out=torch.empty((n_gops, KEY, g.chh, g.cw), dtype=torch.uint8))
+
+
+def _offset(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A copy of t in a buffer that starts nbytes past an aligned one."""
+    buf = torch.zeros(t.numel() * t.element_size() + 64, dtype=torch.uint8)
+    off = (-buf.data_ptr()) % 64 + nbytes
+    view = buf[off:off + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
+BAD_GOP_INPUTS = {
+    "coeffs dtype": lambda a: {"coeffs": a["coeffs"].to(torch.int32)},
+    "coeffs shape": lambda a: {"coeffs": a["coeffs"][:, :, :, :-16]},
+    "dy dtype": lambda a: {"dy": a["dy"].to(torch.int32)},
+    "hc shape": lambda a: {"hc": a["hc"][..., :-1].contiguous()},
+    "ftype dtype": lambda a: {"ftype": a["ftype"].to(torch.int64)},
+    "qmul shape": lambda a: {"qmul": a["qmul"][:1]},
+    "prev shape": lambda a: {"prev": a["prev"][:1]},
+    "canvas items not contiguous": lambda a: {"out": a["out"].transpose(2, 3)},
+    "maps with other batch strides": lambda a: {
+        "dx": torch.cat([a["dx"], a["dx"]], 1)[:, :KEY]},
+    "prev overlaps out": lambda a: {"prev": a["out"][:, 0]},
+    "out canvases share bytes": lambda a: {
+        "out": a["out"][:, :1].expand(a["out"].shape)},
+    "unaligned canvas view": lambda a: {"out": _offset(a["out"], 8)},
+    "unaligned prev view": lambda a: {"prev": _offset(a["prev"], 4)},
+    "unaligned coefficients": lambda a: {"coeffs": _offset(a["coeffs"], 2)},
+    "mixed devices": lambda a: {"hc": a["hc"].to("meta")},
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_GOP_INPUTS))
+def test_k4_whole_gops_checks_raise_once_per_call(clip, case):
+    """Every input that the per-step checks refused, refused by the one
+    check of a whole-GOP call (and, where the input has a per-step form,
+    by a one-step call on [:, :1] views too)."""
+    g = clip["g"]
+    args = _gop_args(clip)
+    args.update(BAD_GOP_INPUTS[case](args))
+    names = ("coeffs", "dy", "dx", "hc", "ftype", "qmul")
+    with pytest.raises(ValueError):
+        step_gops(*(args[k] for k in names), g.chh, g.cw, g.gly, prev=args["prev"],
+                  out=args["out"])
+    step = {k: args[k][:, :1] if k not in ("qmul", "prev") else args[k] for k in args}
+    if case != "out canvases share bytes":
+        with pytest.raises(ValueError):
+            step_gops(*(step[k] for k in names), g.chh, g.cw, g.gly, prev=step["prev"],
+                      out=step["out"])
+    if case in ("coeffs dtype", "dy dtype", "unaligned coefficients", "mixed devices"):
+        flat = {k: args[k].reshape((-1,) + args[k].shape[2:]) for k in names[:5]}
+        with pytest.raises(ValueError):
+            seq_frames_dense(*(flat[k] for k in names[:5]), args["qmul"], g.chh, g.cw,
+                             g.gly)

@@ -135,3 +135,16 @@ def test_step_rejects_what_the_kernel_cannot_take(clip):
             step_frames(*args, g.chh, g.cw, g.gly)
     with pytest.raises(ValueError):
         step_frames(*good, g.chh, 4096 + 16, g.gly)  # > 1024 lanes
+
+
+@pytest.mark.parametrize("i", range(7))
+def test_step_raises_on_an_input_on_another_device(clip, i):
+    """The one check of a whole-clip call refuses an input on another device
+    than the units, whichever it is."""
+    g = clip["g"]
+    meta, (dy, dx, hc), qmul = _port_tables(clip)
+    args = [torch.from_numpy(clip["units"].view(np.int32)), torch.from_numpy(clip["coff"]),
+            dy, dx, hc, meta[3].contiguous(), qmul]
+    args[i] = args[i].to("meta")
+    with pytest.raises(ValueError, match="one device"):
+        step_frames(*args, g.chh, g.cw, g.gly)
