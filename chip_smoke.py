@@ -23,25 +23,31 @@ from the repository root. Phases, one line each:
   6. time each layer of a whole 1080p decode (host demux, upload and
      tables, K1, K2) and the whole calls, host clock, synchronized, and the
      512x384 demux and decode_video_yuv;
-  7. hold K5 (iDCT) and K7 (motion compensation) against their plain
+  7. hold the frame step (K5 + K7 as one kernel, one launch per frame) and
+     K5 (iDCT) and K7 (motion compensation) per plane against their plain
      versions on the card, on the inputs the streaming Decoder gives them
-     for the first I-frame and the first P-frame of both 1080p corpora;
+     for the first I-frame and the first P-frame of both 1080p corpora; the
+     frame step also with random vectors of the int8 field's whole range
+     (windows that leave every plane), q-table indices that differ per
+     plane (U and V apart), and in its one-plane (encoder) form;
   8. drive the streaming Decoder over the three corpora at full length
      (advance_frame, every frame pixel-exact against the scalar reference;
      on 1080p also decode_all and reset with a second pass; advance_delta on
-     512x384) and check the launch counts of that run: K5 and K7 three
-     times (Y, U, V) per frame decoded, K1 once per frame of decode_all;
+     512x384) and check the launch counts of that run: the frame step once
+     per frame decoded, K5 and K7 never, K1 once per frame of decode_all;
   9. drive the whole-clip decode over three streams the frame steps' gates
      refuse, built here with the port's runtime (1080p without its first
      I-packet, 1080p with it re-encoded on q-table indices (0, 1, 3), a
      4112x64 random stream without its first I-packet): decode_video_yuv
      pixel-exact and decode_video_rgba byte-exact against the reference,
-     K1, K3 and K4 launched 0 times, K5 and K7 three times per frame;
- 10. time K5 and K7 per 1080p frame (CUDA events, kernel and plain
-     alternating), each layer of a whole 1080p clip through the Decoder's
-     frame step (host entropy decode, H2D, K5, K7, D2H of the frames) and
-     its advance_frame loop, and the per-frame fallback against the K1 path
-     per 1080p clip (host clock, synchronized);
+     K1, K3, K4, K5 and K7 launched 0 times, the frame step once per frame;
+ 10. time the frame step per 1080p P-frame (CUDA events around the wrapper,
+     one call and 100 back to back, the host's enqueue time, the profiler's
+     device time, its plain version alternating) and, in the same call, K5
+     and K7 per plane; each layer of a whole 1080p clip
+     through the Decoder (host entropy decode, pinned H2D, frame step, D2H
+     of the frames) and its advance_frame loop, and the per-frame fallback
+     against the K1 path per 1080p clip (host clock, synchronized);
  11. rebuild the three corpora's source frames with pfv_torch.synth (no
      JAX), and hold K6 (forward DCT + quantization) against its plain
      version on the card: the intra entry on the 1080p first frame's three
@@ -50,8 +56,8 @@ from the repository root. Phases, one line each:
  12. drive encode_video (quality 2, a keyframe every 60, as the corpora
      were written) over the three sources and check each output's sha256
      against the committed corpus, which the JAX package's encoder wrote;
-     check the launch counts of that run: K5, K6 and K7 three times (Y, U,
-     V) per frame encoded, K1 and K2 never;
+     check the launch counts of that run: K6 and the frame step three times
+     (Y, U, V) per frame encoded, K1, K2, K5 and K7 never;
  13. drive the streaming Encoder over the 512x384 source and the first GOP
      of the 1080p pan: its bytes equal encode_video's, and the scalar
      reference decoder's frames of the 512x384 output equal the Encoder's
@@ -59,7 +65,8 @@ from the repository root. Phases, one line each:
  14. time K6 per 1080p frame (CUDA events with the wrapper, profiler device
      time, plain version alternating), encode_video's frames/s per corpus,
      each layer of a whole 1080p encode (source H2D, motion search, K6,
-     in-loop K5 + K7, compaction and D2H, host mux; each synchronized) and
+     the in-loop frame step, compaction and D2H, host mux; each
+     synchronized) and
      the device's busy share of a whole 1080p encode (profiler);
  15. hold K3 (dense whole-clip step) and K4 (dense frame step, batched over
      GOPs) against their plain versions on the card, on the inputs the dense
@@ -88,7 +95,8 @@ inputs of the timed call (counted from the CUDA sources: see the *_OPS
 constants), at the card's issue rate from its SM count and top SM clock
 (nvidia-smi): one warp instruction per clock in each of an SM's four
 partitions, 128 lanes per SM, ~33.5 T op/s on an H100 SXM, for the integer
-kernels (K1, K3-K7; nvcc issues integer adds and shifts on the INT32 pipe
+kernels (K1, K3-K7, the frame step; nvcc issues integer adds and shifts on
+the INT32 pipe
 and, as IMAD, on the FMA pipe); twice that for K2's float math (a fused
 multiply-add is two operations, 67 T/s). Both sides are printed. The line
 before the last is the kernels' JSON summary; the last line is the device
@@ -132,7 +140,8 @@ RATES = {}
 # idct8 or fdct8): 36 adds and 12 truncating divisions (mask, add, shift),
 # 6 sign extractions. Per inverse-transformed coefficient: dequantize, a
 # column and a row transform, then shift, offset, two clamps and the byte
-# pack; a dense frame step widens each coefficient it loads (one more).
+# pack; the dense frame step and the per-plane frame step widen each
+# coefficient they load (one more).
 # Per forward-transformed coefficient (K6): the residual (subtract, two
 # clamps, a truncating halving, a shift), two transforms, scale, shift and
 # divide. Frame steps (step_common.cuh store_tile), per 16-pixel row of a
@@ -302,6 +311,7 @@ def gop_steps(g, per_step, qmul, out):
 def counts():
     from pfv_torch.kernels.dense_step import seq_frames_dense, step_gops
     from pfv_torch.kernels.fdct import fdct_blocks
+    from pfv_torch.kernels.frame_step import FrameStep
     from pfv_torch.kernels.idct import decode_blocks
     from pfv_torch.kernels.mc import mc_reconstruct
     from pfv_torch.kernels.rgba import canvas_rgba
@@ -309,7 +319,7 @@ def counts():
 
     return {"K1": step_frames, "K2": canvas_rgba, "K3": seq_frames_dense,
             "K4": step_gops, "K5": decode_blocks, "K6": fdct_blocks,
-            "K7": mc_reconstruct}
+            "K7": mc_reconstruct, "FS": FrameStep}
 
 
 def zero_counts() -> None:
@@ -355,15 +365,55 @@ def exact_frame(ref, what):
     return compare
 
 
-def kernel_pair_inputs(fd, frame, prev):
-    """Per plane of an uploaded frame: the K5 inputs, and the K7 inputs
-    without the blocks (motion zeros for an I-frame)."""
-    for coeffs, q, by, bx, mvy, mvx, hc in fd.plane_args(frame):
-        n = coeffs.shape[0]
-        if mvy is None:
-            mvy = mvx = torch.zeros(n, dtype=torch.int8, device=coeffs.device)
+def kernel_pair_inputs(fd, frame):
+    """Per plane of a frame uploaded by FrameDecoder fd: the K5 inputs, and
+    the K7 inputs without the blocks (motion zeros for an I-frame)."""
+    from pfv_torch.device import origins_for
+    from pfv_torch.frame import canvas_layout
+
+    intra, qidx = frame
+    qt = fd.qtables.to(fd.device)
+    for (first, _, _, ph, pw), qi in zip(canvas_layout(fd.g), qidx):
+        n = (ph // 16) * (pw // 16)
+        sl = slice(first, first + n)
+        if intra:
+            mvy = mvx = torch.zeros(n, dtype=torch.int8, device=fd.device)
             hc = mvy.view(torch.uint8)
-        yield (coeffs.view(n, 4, 64), q), (by, bx, mvy, mvx, hc)
+        else:
+            mvy, mvx, hc = (t[sl] for t in fd.motion)
+        yield ((fd.coeffs[sl].view(n, 4, 64), qt[qi]),
+               (*origins_for(ph, pw, fd.device), mvy, mvx, hc))
+
+
+def frame_step_vs_plain(step, coeffs, motion, qidx, prev) -> int:
+    """The frame step on the card against its plain version on the same
+    inputs, each into a canvas filled with 7 -> the largest absolute
+    difference."""
+    from pfv_torch.kernels.frame_step import frame_step_plain
+
+    shape = step.extent if prev is None else prev.shape
+    got, want = (torch.full(shape, 7, dtype=torch.uint8, device=coeffs.device)
+                 for _ in range(2))
+    step(coeffs, motion, qidx, prev, got)
+    frame_step_plain(coeffs, motion, step.qtables, qidx, step.layout, prev, want)
+    return max_abs_err(got, want)
+
+
+def frame_step_bound(g, motion):
+    """Bound of the frame step on one frame of geometry g: coefficients of
+    decoded blocks (512 B each), the prediction windows of P-blocks and the
+    planes' output (1 B per pixel each), the 3 B header of each P-block;
+    IDCT_OPS + 1 per decoded coefficient, SHIFT_OPS and SELECT_OPS per
+    P-block row. motion: (mvy, mvx, hc) or None (I-frame)."""
+    px = 256 * g.nb
+    if motion is None:
+        n, windows, shifted, coded = g.nb, 0, 0, 0
+    else:
+        coded = int((motion[2] != 0).sum())
+        shifted = int((motion[1].to(torch.int32) % 4 != 0).sum())
+        n, windows = coded, px + 3 * g.nb
+    return bound(512 * n + windows + px,
+                 (IDCT_OPS + 1) * 256 * n + 16 * (SHIFT_OPS * shifted + SELECT_OPS * coded))
 
 
 def synth_sources(pool):
@@ -410,7 +460,8 @@ def encode_layers(planes, w, h, dev):
     """One encode of a clip through encode_video's layers, each ending in a
     synchronize -> (bytes, ms per layer)."""
     from pfv_torch import runtime
-    from pfv_torch.device import iframe_decode_plane, origins_for, pframe_decode_plane
+    from pfv_torch.device import (iframe_decode_plane, origins_for, pframe_decode_plane,
+                                  plane_step)
     from pfv_torch.enc import container_header
     from pfv_torch.frame import geometry
     from pfv_torch.kernels.fdct import fdct_blocks
@@ -420,7 +471,7 @@ def encode_layers(planes, w, h, dev):
     from pfv_torch.ops.quant import derive_q_tables
 
     ms = dict.fromkeys(("host pad", "source H2D", "motion search", "K6",
-                        "K5+K7 in-loop", "compaction+D2H", "host mux"), 0.0)
+                        "in-loop frame step", "compaction+D2H", "host mux"), 0.0)
     clock = [time.perf_counter()]
 
     def lap(name):
@@ -436,6 +487,8 @@ def encode_layers(planes, w, h, dev):
     qt = {k: torch.from_numpy(t).to(dev) for k, t in qt_host.items()}
     min_err = skip_threshold(QUALITY)
     origins = [origins_for(*s, dev) for s in shapes]
+    steps = {qk: plane_step(t, *shapes[0 if qk[-1] == "l" else 1], dev)
+             for qk, t in qt_host.items()}
     bounds = (0, g.yb, g.yb + g.cb, g.nb)
     padded = []
     for p, s, c in zip(planes, shapes, (0, 128, 128)):
@@ -458,13 +511,14 @@ def encode_layers(planes, w, h, dev):
         for i in range(3):
             sl, (by, bx) = slice(bounds[i], bounds[i + 1]), origins[i]
             blocks = plane_to_blocks(src[i][t])
-            q = qt[("intra_" if key else "inter_") + ("l" if i == 0 else "c")]
+            qk = ("intra_" if key else "inter_") + ("l" if i == 0 else "c")
+            q = qt[qk]
             if key:
                 lap("motion search")
                 c = fdct_blocks(blocks, q)
                 lap("K6")
-                iframe_decode_plane(c.view(-1, 256), q, src[i][t], by, bx, back[i])
-                lap("K5+K7 in-loop")
+                iframe_decode_plane(c.view(-1, 256), steps[qk], back[i])
+                lap("in-loop frame step")
                 live[t, sl] = c.view(-1, 256)
             else:
                 mx, my, err, win = motion_search(blocks, prev[i], by, bx)
@@ -473,9 +527,9 @@ def encode_layers(planes, w, h, dev):
                 c = fdct_blocks(blocks, q, win)
                 lap("K6")
                 mx, my = mx.to(torch.int8), my.to(torch.int8)
-                pframe_decode_plane(c.view(-1, 256), mx, my, coded.to(torch.uint8),
-                                    prev[i], q, by, bx, back[i])
-                lap("K5+K7 in-loop")
+                pframe_decode_plane(c.view(-1, 256), mx, my, coded.view(torch.uint8),
+                                    prev[i], steps[qk], back[i])
+                lap("in-loop frame step")
                 torch.mul(c.view(-1, 256), coded[:, None], out=live[t, sl])
                 mvx[t, sl], mvy[t, sl], hc[t, sl] = mx, my, coded
             lap("compaction+D2H")
@@ -512,8 +566,10 @@ def main() -> int:
     from pfv_torch import dataloader as dl
     from pfv_torch import runtime, synth
     from pfv_torch.dec import Decoder, FrameDecoder, frame_packets, split_packets
-    from pfv_torch.frame import canvas_planes
+    from pfv_torch.device import plane_step
+    from pfv_torch.frame import canvas_layout, canvas_planes
     from pfv_torch.kernels import build
+    from pfv_torch.kernels.frame_step import frame_step_plain
     from pfv_torch.kernels.idct import decode_blocks, decode_blocks_plain
     from pfv_torch.kernels.mc import mc_reconstruct, mc_reconstruct_plain
     from pfv_torch.kernels.rgba import canvas_rgba, canvas_rgba_plain
@@ -611,8 +667,8 @@ def main() -> int:
           f"(frames decoded {frames}), K2 {launches['K2']}")
     check(launches["K1"] == frames, "K1 was not launched once per frame")
     check(launches["K2"] >= 1, "K2 was not launched")
-    check(launches["K3"] == launches["K4"] == launches["K5"] == launches["K7"] == 0,
-          "the K1 path launched K3, K4, K5 or K7")
+    check(launches["K3"] == launches["K4"] == launches["K5"] == launches["K7"]
+          == launches["FS"] == 0, "the K1 path launched K3, K4, K5, K7 or the frame step")
 
     times, bounds = {}, {}
     for name in TIMED:
@@ -661,8 +717,9 @@ def main() -> int:
     print(f"phase 6 per clip, 512x384, median of {REPS}, ms: " + ", ".join(
         f"{k} {median_host_ms(fn):.3f}" for k, fn in small.items()) + f" ({card})")
 
-    # phase 7: K5 and K7 against their plain versions, Decoder inputs
-    err_k5 = err_k7 = 0
+    # phase 7: the frame step, K5 and K7 against their plain versions,
+    # Decoder inputs
+    err_k5 = err_k7 = err_fs = 0
     for name in TIMED:
         info, _ = runtime.parse_header(datas[name])
         g = dl.geometry(info["width"], info["height"])
@@ -672,20 +729,39 @@ def main() -> int:
               f"{name} does not open with an I-frame and a P-frame")
         prev, cur = fd.initial_canvas(), torch.empty((g.chh, g.cw), dtype=torch.uint8,
                                                      device=dev)
+        nq = fd.step.nq
+        split = ((nq - 1) % nq, 0, 1 % nq)  # U and V apart where nq > 1
+        ylay = canvas_layout(g)[0]
         for f in (0, 1):
             frame = fd.upload(fd.entropy(*packets[f]))
-            for (k5_in, k7_in), p in zip(kernel_pair_inputs(fd, frame, prev),
+            intra, qidx = frame
+            for (k5_in, k7_in), p in zip(kernel_pair_inputs(fd, frame),
                                          canvas_planes(g, prev)):
                 res = decode_blocks(*k5_in)
                 e5 = max_abs_err(res, decode_blocks_plain(*k5_in))
-                e7 = max_abs_err(mc_reconstruct(res, p, *k7_in, frame[0]),
-                                 mc_reconstruct_plain(res, p, *k7_in, frame[0]))
+                e7 = max_abs_err(mc_reconstruct(res, p, *k7_in, intra),
+                                 mc_reconstruct_plain(res, p, *k7_in, intra))
                 err_k5, err_k7 = max(err_k5, e5), max(err_k7, e7)
+            motion = None if intra else fd.motion
+            wild = None if intra else (*random_vectors(fd.motion, 70 + f)[:2],
+                                       fd.motion[2])
+            ystep = plane_step(fd.qtables[qidx[0]], ylay[3], ylay[4], dev)
+            yprev = canvas_planes(g, prev)[0].contiguous()
+            yargs = (fd.coeffs[:g.yb], None if intra else tuple(t[:g.yb] for t in motion))
+            errs = {
+                "stream": frame_step_vs_plain(fd.step, fd.coeffs, motion, qidx, prev),
+                "random vectors, q " + str(split): frame_step_vs_plain(
+                    fd.step, fd.coeffs, wild, split, prev),
+                "one plane (Y)": frame_step_vs_plain(ystep, *yargs, (0,), yprev),
+            }
+            err_fs = max(err_fs, *errs.values())
             fd.planes(frame, cur, prev)
             prev, cur = cur, prev
             print(f"phase 7 kernels vs plain, {name} frame {f} "
-                  f"({'I' if frame[0] else 'P'}, {g.nb} blocks): K5 max_abs_err "
-                  f"{err_k5}, K7 max_abs_err {err_k7}")
+                  f"({'I' if intra else 'P'}, {g.nb} blocks, q indices {qidx}): frame "
+                  f"step max_abs_err " + ", ".join(f"{k} {v}" for k, v in errs.items())
+                  + f"; per plane K5 max_abs_err {err_k5}, K7 max_abs_err {err_k7}")
+    check(err_fs == 0, "the frame step disagrees with its plain version")
     check(err_k5 == 0 and err_k7 == 0, "K5 or K7 disagrees with its plain version")
 
     # phase 8: the streaming Decoder, the second main path
@@ -725,11 +801,13 @@ def main() -> int:
     dec_launches = read_counts()
     print(f"phase 8 launches in the Decoder run: {dec_launches} (frames stepped "
           f"{stepped[0]}, frames of decode_all {bulk})")
-    check(dec_launches["K5"] == dec_launches["K7"] == 3 * stepped[0],
-          "K5 and K7 were not launched three times per stepped frame")
+    check(dec_launches["FS"] == stepped[0],
+          "the frame step was not launched once per stepped frame")
+    check(dec_launches["K5"] == dec_launches["K7"] == 0, "the Decoder launched K5 or K7")
     check(dec_launches["K1"] == bulk, "decode_all did not launch K1 once per frame")
 
-    # phase 9: streams K1's gates refuse go frame by frame through K5 + K7
+    # phase 9: streams K1's gates refuse go frame by frame through the frame
+    # step
     info, packets = split_packets(datas["1080p"])
     first_i = next(i for i, (t, _) in enumerate(packets) if t == 1)
     g = dl.geometry(info["width"], info["height"])
@@ -770,8 +848,9 @@ def main() -> int:
           f"{fb_frames})")
     check(fb_launches["K1"] == fb_launches["K3"] == fb_launches["K4"] == 0,
           "a fallback stream launched K1, K3 or K4")
-    check(fb_launches["K5"] == fb_launches["K7"] == 3 * fb_frames,
-          "K5 and K7 were not launched three times per fallback frame")
+    check(fb_launches["FS"] == fb_frames,
+          "the frame step was not launched once per fallback frame")
+    check(fb_launches["K5"] == fb_launches["K7"] == 0, "a fallback stream launched K5 or K7")
     check(fb_launches["K2"] == len(fallback), "K2 was not launched once per RGBA call")
 
     # phase 10: times
@@ -781,9 +860,17 @@ def main() -> int:
     packets = frame_packets(datas["1080p"])
     canv = torch.empty((2, g.chh, g.cw), dtype=torch.uint8, device=dev)
     fd.planes(fd.upload(fd.entropy(*packets[0])), canv[0], fd.initial_canvas())
-    pin = list(kernel_pair_inputs(fd, fd.upload(fd.entropy(*packets[1])), canv[0]))
+    pframe = fd.upload(fd.entropy(*packets[1]))
+    pin = list(kernel_pair_inputs(fd, pframe))
     blocks = [decode_blocks(*k5_in) for k5_in, _ in pin]
     refp, outp = canvas_planes(g, canv[0]), canvas_planes(g, canv[1])
+
+    def fs_frame():
+        fd.planes(pframe, canv[1], canv[0])
+
+    def fs_plain():
+        frame_step_plain(fd.coeffs, fd.motion, fd.qtables, pframe[1], fd.step.layout,
+                         canv[0], canv[1])
 
     def k5_frame():
         return [decode_blocks(*a) for a, _ in pin]
@@ -792,6 +879,8 @@ def main() -> int:
         return [mc_reconstruct(r, p, *a, False, o)
                 for r, p, (_, a), o in zip(blocks, refp, pin, outp)]
 
+    times["FS"] = paired_ms(fs_frame, fs_plain)
+    bounds["FS"] = frame_step_bound(g, fd.motion)
     times["K5"] = paired_ms(k5_frame, lambda: [decode_blocks_plain(*a) for a, _ in pin])
     bounds["K5"] = bound(sum(nbytes(*a) + a[0].numel() for a, _ in pin),
                          IDCT_OPS * sum(a[0].numel() for a, _ in pin))
@@ -801,47 +890,68 @@ def main() -> int:
     times["K7"] = paired_ms(k7_frame, lambda: [
         mc_reconstruct_plain(r, p, *a, False, o)
         for r, p, (_, a), o in zip(blocks, refp, pin, outp)])
-    print(f"phase 10 per 1080p P-frame (Y, U, V; CUDA events around the three "
-          f"wrapper calls, launch overhead included): K5 kernel {times['K5'][0]:.4f} "
-          f"ms, plain {times['K5'][1]:.4f} ms; K7 kernel {times['K7'][0]:.4f} ms, "
-          f"plain {times['K7'][1]:.4f} ms ({card})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        fs_frame()
+    enqueue_us = 1e4 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        k5_frame(), k7_frame()
+    enqueue57_us = 1e4 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    # a frame's call after an idle card holds the card's wake-up; 100 calls
+    # back to back between one pair of events give the steady rate
+    run_fs = timed_ms(lambda: [fs_frame() for _ in range(100)]) / 100
+    run57 = timed_ms(lambda: [(k5_frame(), k7_frame()) for _ in range(100)]) / 100
+    print(f"phase 10 per 1080p P-frame ({int(fd.motion[2].sum())} of {g.nb} blocks "
+          f"coded), CUDA events around the wrapper calls, launch overhead included: "
+          f"frame step (one call, one launch) {times['FS'][0]:.4f} ms, plain "
+          f"{times['FS'][1]:.4f} ms; K5 (three calls) {times['K5'][0]:.4f} ms, plain "
+          f"{times['K5'][1]:.4f} ms; K7 (three calls) {times['K7'][0]:.4f} ms, plain "
+          f"{times['K7'][1]:.4f} ms; 100 frames back to back, per frame: frame step "
+          f"{run_fs:.4f} ms, K5 + K7 {run57:.4f} ms; host time to enqueue, per frame "
+          f"(100 frames): frame step {enqueue_us:.2f} us, K5 + K7 {enqueue57_us:.2f} us "
+          f"({card})")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
-            k5_frame(), k7_frame()
+            fs_frame(), k5_frame(), k7_frame()
         torch.cuda.synchronize()
     device_us = {k: sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
                         if kernel in e.key) / 10
-                 for k, kernel in (("K5", "idct_blocks_kernel"), ("K7", "mc_kernel"))}
+                 for k, kernel in (("FS", "frame_step_kernel"), ("K5", "idct_blocks_kernel"),
+                                   ("K7", "mc_kernel"))}
+    fs_b = bounds["FS"]
     print("phase 10 per 1080p P-frame, device time of the kernels alone "
           "(torch.profiler, 10 frames): " + ", ".join(
               f"{k} {v:.2f} us" if v else f"{k} not measured (no device time seen)"
-              for k, v in device_us.items()) + f" ({card})")
+              for k, v in device_us.items())
+          + f"; frame step bound {1e3 * fs_b[0]:.3f} us ({fs_b[1]}; bytes "
+          f"{1e3 * fs_b[2]:.3f} us, operations {1e3 * fs_b[3]:.3f} us), share of the "
+          f"device time " + (f"{1e3 * fs_b[0] / device_us['FS']:.3f}" if device_us["FS"]
+                             else "not measured") + f" ({card})")
 
     def decoder_layers():
         """One pass of the Decoder's frame step over the clip, each layer
         synchronized, -> ms per layer."""
-        t = dict.fromkeys(("host entropy decode", "H2D", "K5", "K7", "D2H emit"), 0.0)
+        t = dict.fromkeys(("host entropy decode", "pinned H2D", "frame step",
+                           "D2H emit"), 0.0)
         prev, cur = fd.initial_canvas(), canv[1]
         for p in packets:
             t0 = time.perf_counter()
-            host = fd.entropy(*p)
+            frame = fd.entropy(*p)
             t1 = time.perf_counter()
-            frame = fd.upload(host)
+            fd.upload(frame)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            pairs = list(kernel_pair_inputs(fd, frame, prev))
-            res = [decode_blocks(*k5_in) for k5_in, _ in pairs]
+            fd.planes(frame, cur, prev)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
-            for r, (_, k7_in), pp, o in zip(res, pairs, canvas_planes(g, prev),
-                                            canvas_planes(g, cur)):
-                mc_reconstruct(r, pp, *k7_in, frame[0], o)
-            torch.cuda.synchronize()
-            t4 = time.perf_counter()
             cur.to("cpu", copy=True)
-            t5 = time.perf_counter()
-            for k, dt in zip(t, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            t4 = time.perf_counter()
+            for k, dt in zip(t, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
                 t[k] += 1e3 * dt
             prev, cur = cur, prev
         return t
@@ -923,9 +1033,10 @@ def main() -> int:
     enc_frames = sum(v[2] for v in SOURCES.values())
     print(f"phase 12 launches in the encode run: {enc_launches} (frames encoded "
           f"{enc_frames})")
-    check(enc_launches["K5"] == enc_launches["K6"] == enc_launches["K7"] == 3 * enc_frames,
-          "K5, K6 and K7 were not launched three times per encoded frame")
-    check(enc_launches["K1"] == enc_launches["K2"] == 0, "the encoder launched K1 or K2")
+    check(enc_launches["K6"] == enc_launches["FS"] == 3 * enc_frames,
+          "K6 and the frame step were not launched three times per encoded frame")
+    check(enc_launches["K1"] == enc_launches["K2"] == enc_launches["K5"]
+          == enc_launches["K7"] == 0, "the encoder launched K1, K2, K5 or K7")
 
     # phase 13: the streaming Encoder, and the round trip
     zero_counts()
@@ -947,8 +1058,9 @@ def main() -> int:
     st_launches = read_counts()
     print(f"phase 13 launches in the Encoder run: {st_launches} (frames encoded "
           f"{n + KEYFRAMES})")
-    check(st_launches["K5"] == st_launches["K6"] == st_launches["K7"]
-          == 3 * (n + KEYFRAMES), "the Encoder did not launch K5, K6, K7 3x per frame")
+    check(st_launches["K6"] == st_launches["FS"] == 3 * (n + KEYFRAMES),
+          "the Encoder did not launch K6 and the frame step 3x per frame")
+    check(st_launches["K5"] == st_launches["K7"] == 0, "the Encoder launched K5 or K7")
 
     # phase 14: times
     times["K6"] = {e: paired_ms(lambda: [fdct_blocks(*a) for a in args],
@@ -1204,8 +1316,9 @@ def main() -> int:
                      "pfv_tpu/ops/pallas/step_kernel.py:596", launches["K1"], err_k1,
                      times[("K1", TIMED[0])], bounds["K1"]),
         kernel_entry("canvas_rgba", "pfv_torch/csrc/rgba_kernel.cu",
-                     "pfv_tpu/ops/pallas/rgb_kernel.py:37", launches["K2"], err_k2,
-                     times["K2"], bounds["K2"]),
+                     "pfv_tpu/ops/pallas/rgb_kernel.py:37",
+                     sum(r["K2"] for r in (launches, fb_launches, dense_launches)),
+                     err_k2, times["K2"], bounds["K2"]),
         kernel_entry("dense_seq_frame", "pfv_torch/csrc/dense_step_kernel.cu",
                      "pfv_tpu/ops/pallas/step_kernel.py:440", dense_launches["K3"],
                      err_k3, times[("K3", "8K UHD")], bounds[("K3", "8K UHD")]),
@@ -1221,11 +1334,20 @@ def main() -> int:
         kernel_entry("mc_reconstruct", "pfv_torch/csrc/mc_kernel.cu",
                      "pfv_tpu/ops/pallas/mc_kernel.py:31", dec_launches["K7"], err_k7,
                      times["K7"], bounds["K7"]),
+        # K5 + K7 as one kernel: the launches of the Decoder, fallback and
+        # encode runs (phases 8, 9, 12, 13)
+        dict(kernel_entry("frame_step", "pfv_torch/csrc/frame_step_kernel.cu",
+                          "pfv_tpu/ops/pallas/idct_kernel.py:59",
+                          sum(r["FS"] for r in (dec_launches, fb_launches, enc_launches,
+                                                st_launches)),
+                          err_fs, times["FS"], bounds["FS"]),
+             also_replaces="pfv_tpu/ops/pallas/mc_kernel.py:31"),
     ]
     sides = [("K1 1080p", bounds["K1"]), ("K2 1080p", bounds["K2"])] + [
         (f"{k} {n}", bounds[(k, n)]) for k, n in (("K3", "8K UHD"), ("K3", "1080p"),
                                                   ("K4", "512x384"), ("K4", "1080p"))] + [
-        (k, bounds[k]) for k in ("K5", "K6", "K7")]
+        (k, bounds[k]) for k in ("K5", "K6", "K7")] + [
+        ("frame step, 1080p P-frame", bounds["FS"])]
     for name, b in sides:
         print(f"bound {name}: {b[0]:.5f} ms ({b[1]}): bytes {b[2]:.5f} ms, operations "
               f"{b[3]:.5f} ms ({card})")

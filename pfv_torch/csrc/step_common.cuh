@@ -1,6 +1,8 @@
 // The device code that the frame steps share: K1 (step_kernel.cu, fed by
 // the tile demux's units) and K3/K4 (dense_step_kernel.cu, fed by dense
-// coefficients), and their launch. One CTA of kThreads threads
+// coefficients), and their launch; the per-plane frame step of the
+// streaming decoder and the encoder (frame_step_kernel.cu) takes the tile,
+// mark_needed, residual, window16 and inter4. One CTA of kThreads threads
 // reconstructs a 16-row stripe s of the fused Y|UV canvas over kCols
 // columns: kLanes coefficient lanes, kMbs macroblocks. Its stages:
 //
@@ -126,6 +128,20 @@ __device__ __forceinline__ void residual(Tile& t, const int* __restrict__ q) {
   __syncthreads();
 }
 
+// The 16 bytes row[sx .. sx+15] as four little-endian words, from aligned
+// 4-byte loads and funnel shifts: bytes [a, a + 20), a = sx & ~3, hold the
+// window, and the fifth word is read only when sx % 4 != 0. row must be
+// 4-byte aligned; in a row of a multiple of 16 bytes that holds the window,
+// a + 19 lies inside the row whenever the fifth word is read.
+__device__ __forceinline__ uint4 window16(const uint8_t* __restrict__ row, int sx) {
+  const int a = sx & ~3, sh = 8 * (sx & 3);
+  const u32* w = reinterpret_cast<const u32*>(row + a);
+  const u32 w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3];
+  const u32 w4 = sh ? w[4] : 0u;
+  return make_uint4(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
+                    __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh));
+}
+
 // The 16 prediction bytes prev[sy][sx .. sx+15] as four little-endian
 // words, 0 for every byte outside the (chh, cw) canvas or without prev.
 __device__ __forceinline__ uint4 predict16(const uint8_t* __restrict__ prev,
@@ -133,18 +149,7 @@ __device__ __forceinline__ uint4 predict16(const uint8_t* __restrict__ prev,
   uint4 o = make_uint4(0, 0, 0, 0);
   if (prev == nullptr || sy < 0 || sy >= chh) return o;
   const uint8_t* row = prev + (size_t)sy * cw;
-  if (sx >= 0 && sx + 16 <= cw) {
-    // bytes [a, a + 20) hold the window; a + 19 < cw whenever sx % 4 != 0
-    const int a = sx & ~3, sh = 8 * (sx & 3);
-    const u32* w = reinterpret_cast<const u32*>(row + a);
-    const u32 w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3];
-    const u32 w4 = sh ? w[4] : 0u;
-    o.x = __funnelshift_r(w0, w1, sh);
-    o.y = __funnelshift_r(w1, w2, sh);
-    o.z = __funnelshift_r(w2, w3, sh);
-    o.w = __funnelshift_r(w3, w4, sh);
-    return o;
-  }
+  if (sx >= 0 && sx + 16 <= cw) return window16(row, sx);
   u32 b[4] = {0, 0, 0, 0};
 #pragma unroll
   for (int k = 0; k < 16; k++) {

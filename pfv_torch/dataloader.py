@@ -11,8 +11,8 @@ Counterpart of pfv_tpu/dataloader.py. A stream takes one of four routes
   "gops"   as "dense", but a uniform keyframe interval L and small frames:
            G GOPs side by side, K4, one launch per step of all GOPs, L
            launches
-  "frames" decode_frames: the streaming decoder's step (K5 + K7 per plane)
-           frame by frame, for every stream the others refuse
+  "frames" decode_frames: the streaming decoder's frame step (one launch
+           per frame for Y, U and V), for every stream the others refuse
 
 then YUV views of the canvases | K2 -> (F, H, W) uint32 RGBA. K1 takes
 every stream whose lanes fit its units (2*scp <= 1024, widths up to ~4K);
@@ -352,9 +352,10 @@ def _gops_canvases(host, n_gops: int, gop_len: int, device):
 
 
 def decode_frames(data: bytes, device="cuda"):
-    """Decode a whole stream frame by frame, each through K5 + K7 per plane
-    (dec.FrameDecoder), -> (geometry, (F, chh, cw) u8 canvases) in the
-    layout K1 writes, zeros outside the planes. Takes every stream the
+    """Decode a whole stream frame by frame, each through one launch of
+    the frame step (dec.FrameDecoder), -> (geometry, (F, chh, cw) u8
+    canvases) in the layout K1 writes, zeros outside the planes. Takes
+    every stream the
     format allows: any q-table index per frame and plane, any first packet
     (the framebuffer starts at Y 0, U and V 128), any width, any motion
     vector that keeps its window in the plane."""

@@ -2,8 +2,10 @@
 
 Packet demux and entropy decode run on the host (the shared C++ runtime);
 each frame's coefficients and block headers are copied to the device in one
-upload each, and every plane is decoded by kernels K5 (iDCT) and K7 (motion
-compensation) into a fused (chh, cw) canvas (frame.py). The framebuffer
+upload from a pinned staging buffer, and the frame step
+(kernels/frame_step.py: K5's iDCT and K7's motion compensation as one
+kernel) decodes its three planes into a fused (chh, cw) canvas (frame.py)
+in one launch. The framebuffer
 stays on the device between frames: two canvases, the previous frame and
 the one being written. The decoder is configured by the bitstream: the
 q-tables ride in the header, and per-frame indices pick one per plane.
@@ -21,8 +23,8 @@ import numpy as np
 import torch
 
 from pfv_torch import runtime
-from pfv_torch.device import iframe_decode_plane, origins_for, pframe_decode_plane
-from pfv_torch.frame import Geometry, VideoFrame, canvas_planes, geometry, slice_yuv
+from pfv_torch.frame import Geometry, VideoFrame, canvas_layout, geometry, slice_yuv
+from pfv_torch.kernels.frame_step import FrameStep
 
 PFV_MAGIC = b"PFVIDEO\0"
 PFV_VERSION = 211
@@ -78,19 +80,35 @@ def frame_packets(data: bytes):
 class FrameDecoder:
     """Decodes one frame packet into a fused canvas on `device`, from the
     canvas of the frame before it, in three steps that can be timed apart:
-    `entropy` (host), `upload` (host to device), `planes` (K5 + K7 for each
-    of Y, U, V)."""
+    `entropy` (host), `upload` (host to device), `planes` (the frame step,
+    one launch for Y, U and V).
+
+    The entropy decoder writes straight into one staging buffer per
+    decoder (pinned host memory on a CUDA device): the frame's (nb, 256)
+    i16 coefficients, then its header rows mvy, mvx and has_coeff, (nb,)
+    each. `upload` copies the buffer to its device twin, `coeffs` and
+    `motion`, in one asynchronous copy and records an event; `entropy`
+    waits on that event before it writes the buffer again. The buffers are
+    checked against the frame step once, here."""
 
     def __init__(self, g: Geometry, qtables: np.ndarray, device):
         self.g = g
-        self.device = torch.device(device)
-        self.qtables = torch.from_numpy(
-            np.ascontiguousarray(qtables, dtype=np.int32)).to(self.device)
-        oy = origins_for(g.ly0, g.lyw, self.device)
-        oc = origins_for(g.lc0, g.lcw, self.device)
-        yb, cb = g.yb, g.cb
-        self._parts = ((slice(0, yb), oy), (slice(yb, yb + cb), oc),
-                       (slice(yb + cb, g.nb), oc))
+        self.step = FrameStep(qtables, canvas_layout(g), device)
+        self.device = self.step.device
+        self.qtables = self.step.qtables
+        nb, cuda = g.nb, self.device.type == "cuda"
+        size = 512 * nb + 3 * nb
+        self._host = torch.empty(size, dtype=torch.uint8, pin_memory=cuda)
+        host = self._host.numpy()
+        self._coeffs_h = host[:512 * nb].view(np.int16).reshape(nb, 256)
+        self._motion_h = host[512 * nb:].view(np.int8).reshape(3, nb)
+        self._buf = torch.empty(size, dtype=torch.uint8, device=self.device)
+        self.coeffs = self._buf[:512 * nb].view(torch.int16).view(nb, 256)
+        mvy, mvx, hc = self._buf[512 * nb:].view(torch.int8).view(3, nb)
+        self.motion = (mvy, mvx, hc.view(torch.uint8))
+        self._copied = torch.cuda.Event() if cuda else None
+        self.step.check(self.coeffs, self.motion, (0,) * 3, self.initial_canvas(),
+                        self.initial_canvas())
 
     def initial_canvas(self) -> torch.Tensor:
         """The framebuffer before the first frame: Y 0, U and V 128."""
@@ -100,51 +118,40 @@ class FrameDecoder:
         return c
 
     def entropy(self, ptype: int, payload):
-        """Host: payload -> (intra, (nb, 256) i16 coefficients, (3, nb) int8
-        [mvy, mvx, has_coeff] or None, q-table indices). Raises ValueError
-        on a corrupt payload, a motion vector whose window leaves the
-        padded plane, or a q-table index the header does not have."""
+        """Host: payload -> the staging buffer; returns (intra, q-table
+        indices). Raises ValueError on a corrupt payload, a motion vector
+        whose window leaves the padded plane, or a q-table index the header
+        does not have."""
         g = self.g
+        if self._copied is not None:
+            self._copied.synchronize()  # the last upload has read the buffer
         if ptype == 1:
-            coeffs, qidx = runtime.decode_iframe_payload(payload, g.nb)
-            hdr = None
+            _, qidx = runtime.decode_iframe_payload(payload, g.nb, out=self._coeffs_h)
         else:
-            coeffs, mvx, mvy, hc, qidx = runtime.decode_pframe_payload(payload, g.nb)
+            mvy, mvx, hc = self._motion_h
+            _, _, _, _, qidx = runtime.decode_pframe_payload(
+                payload, g.nb, out=(self._coeffs_h, mvx, mvy, hc.view(np.uint8)))
             runtime.validate_motion(mvx, mvy, (g.ly0, g.lyw), (g.lc0, g.lcw))
-            hdr = np.stack([mvy, mvx, hc.view(np.int8)])
-        nq = self.qtables.shape[0]
+        nq = self.step.nq
         if (qidx >= nq).any():
             raise ValueError(f"corrupt payload: q-table index {list(qidx)} out of "
                              f"range (header has {nq} tables)")
-        return ptype == 1, coeffs, hdr, [int(q) for q in qidx]
+        return ptype == 1, tuple(int(q) for q in qidx)
 
-    def upload(self, host):
-        """`entropy`'s arrays -> tensors on the device (two copies)."""
-        intra, coeffs, hdr, qidx = host
-        dev = self.device
-        return (intra, torch.from_numpy(coeffs).to(dev),
-                None if hdr is None else torch.from_numpy(hdr).to(dev), qidx)
-
-    def plane_args(self, frame):
-        """Per plane (Y, U, V) of an uploaded frame: (coeffs (N, 256) i16,
-        q-table (64,) i32, by, bx (N,) i32 origins, mvy, mvx (N,) int8,
-        has_coeff (N,) u8), the motion inputs None for an I-frame."""
-        _, coeffs, hdr, qidx = frame
-        for (sl, (by, bx)), qi in zip(self._parts, qidx):
-            motion = ((None,) * 3 if hdr is None else
-                      (hdr[0, sl], hdr[1, sl], hdr[2, sl].view(torch.uint8)))
-            yield (coeffs[sl], self.qtables[qi], by, bx, *motion)
+    def upload(self, frame):
+        """The staging buffer -> `coeffs` and `motion` on the device, one
+        copy; returns `frame`, `entropy`'s result."""
+        self._buf.copy_(self._host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+        return frame
 
     def planes(self, frame, out: torch.Tensor, prev: torch.Tensor) -> None:
-        """K5 + K7 for each plane of an uploaded frame: canvas `out` from
-        canvas `prev` (distinct tensors)."""
-        for (coeffs, q, by, bx, mvy, mvx, hc), o, p in zip(
-                self.plane_args(frame), canvas_planes(self.g, out),
-                canvas_planes(self.g, prev)):
-            if frame[0]:
-                iframe_decode_plane(coeffs, q, p, by, bx, o)
-            else:
-                pframe_decode_plane(coeffs, mvx, mvy, hc, p, q, by, bx, o)
+        """The frame step of the uploaded frame: canvas `out` from canvas
+        `prev` (apart from each other), one launch."""
+        intra, qidx = frame
+        self.step.check_canvases(None if intra else prev, out)
+        self.step.launch(self.coeffs, None if intra else self.motion, qidx, prev, out)
 
     def decode(self, ptype: int, payload, out: torch.Tensor,
                prev: torch.Tensor) -> None:

@@ -1,13 +1,14 @@
 """Whole-plane encode and decode steps on one device (counterpart of
 pfv_tpu/device.py).
 
-Each decode step decodes every macroblock of one padded plane: K5 turns the
-coefficients into blocks, K7 places them into the output plane, taking
-the window of the reference plane for P blocks. The output may be a strided
-view of a fused canvas; it never overlaps the reference. Each encode step
-encodes every macroblock of a plane (K6, after the motion search for P)
-and reconstructs it in the loop through the decode step, so the
-reconstruction the next frame is predicted from never leaves the device.
+Each decode step decodes every macroblock of one padded plane in one
+launch of the frame step (kernels/frame_step.py, one descriptor): the
+blocks land in the output plane in raster order, P blocks from the window
+of the reference plane. The output may be a strided view of a fused canvas;
+it never overlaps the reference. Each encode step encodes every macroblock
+of a plane (K6, after the motion search for P) and reconstructs it in the
+loop through the decode step, so the reconstruction the next frame is
+predicted from never leaves the device.
 """
 
 from __future__ import annotations
@@ -15,10 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pfv_torch.kernels.mc import mc_reconstruct
+from pfv_torch.kernels.frame_step import FrameStep, plane_layout
 from pfv_torch.ops.blocks import block_origins, plane_to_blocks
-from pfv_torch.ops.iframe import decode_blocks_best, encode_blocks_best
-from pfv_torch.ops.pframe import decode_delta_blocks, encode_plane_delta
+from pfv_torch.ops.iframe import encode_blocks_best
+from pfv_torch.ops.pframe import encode_plane_delta
 
 
 def origins_for(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -26,49 +27,65 @@ def origins_for(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return tuple(torch.from_numpy(o).to(device) for o in block_origins(h, w))
 
 
-def iframe_decode_plane(coeffs, q_table, like, by, bx, out=None) -> torch.Tensor:
-    """(N, 256) i16 coeffs -> padded (H, W) u8 plane shaped like `like`
-    (written into `out` if given). K7 places the blocks in intra mode, so
-    its motion inputs are zeros and `like` is not read."""
-    n = coeffs.shape[0]
-    blocks = decode_blocks_best(coeffs.view(n, 4, 64), q_table)
-    zero = torch.zeros(n, dtype=torch.int8, device=coeffs.device)
-    return mc_reconstruct(blocks, like, by, bx, zero, zero, zero.view(torch.uint8),
-                          True, out)
+def plane_step(q_table, h: int, w: int, device) -> FrameStep:
+    """The frame step of one padded (h, w) plane over one (64,) q-table
+    (host values): the decode steps' and the encoders' in-loop step."""
+    if isinstance(q_table, torch.Tensor):
+        q_table = q_table.cpu().numpy()
+    return FrameStep(np.asarray(q_table).reshape(1, 64), plane_layout(h, w), device)
 
 
-def pframe_decode_plane(coeffs, mvx, mvy, has_coeff, ref_plane, q_table, by, bx,
-                        out=None) -> torch.Tensor:
-    """(N, 256) i16 coeffs + (N,) int8 motion and u8 coded flags ->
-    reconstructed padded (H, W) u8 plane (written into `out` if given)."""
-    n = coeffs.shape[0]
-    return decode_delta_blocks(coeffs.view(n, 4, 64), q_table, ref_plane, by, bx,
-                               mvy, mvx, has_coeff, out)
+def iframe_decode_plane(coeffs, step: FrameStep, out) -> torch.Tensor:
+    """(N, 256) i16 coeffs -> the padded (H, W) u8 plane `out`, through
+    `step` (a `plane_step`)."""
+    return step(coeffs, None, (0,), None, out)
 
 
-def iframe_encode_plane(plane, q_table, by, bx, out=None):
+def pframe_decode_plane(coeffs, mvx, mvy, has_coeff, ref_plane, step: FrameStep,
+                        out) -> torch.Tensor:
+    """(N, 256) i16 coeffs + (N,) int8 motion and u8 coded flags -> the
+    reconstructed padded (H, W) u8 plane `out` (never overlapping
+    `ref_plane`), through `step` (a `plane_step`)."""
+    return step(coeffs, (mvy, mvx, has_coeff), (0,), ref_plane, out)
+
+
+def iframe_encode_plane(plane, q_table, by, bx, out=None, step=None):
     """Padded (H, W) u8 plane -> ((N, 256) i16 coeffs, its (H, W) u8
-    reconstruction, written into `out` if given)."""
+    reconstruction, written into `out` if given). by, bx: the raster
+    origins, which the decode step implies; `step`: the plane's
+    `plane_step` over q_table, made here when not given (an encoder makes
+    it once)."""
+    del by, bx
     coeffs = encode_blocks_best(plane_to_blocks(plane), q_table)
     coeffs = coeffs.view(coeffs.shape[0], 256)
-    return coeffs, iframe_decode_plane(coeffs, q_table, plane, by, bx, out)
+    if out is None:
+        out = torch.empty_like(plane, memory_format=torch.contiguous_format)
+    if step is None:
+        step = plane_step(q_table, *plane.shape, plane.device)
+    return coeffs, iframe_decode_plane(coeffs, step, out)
 
 
-def pframe_encode_plane(plane, ref_plane, q_table, min_err, by, bx, out=None):
+def pframe_encode_plane(plane, ref_plane, q_table, min_err, by, bx, out=None,
+                        step=None):
     """Inter-encode one padded plane against the reconstructed previous
     plane `ref_plane`.
 
     Returns (coeffs (N, 256) i16, mv_x (N,) int8, mv_y (N,) int8,
     has_coeff (N,) bool, recon (H, W) u8, written into `out` if given;
-    `out` must not overlap `ref_plane`).
+    `out` must not overlap `ref_plane`). `step` as `iframe_encode_plane`'s.
     """
     coeffs, mv_x, mv_y, has_coeff = encode_plane_delta(
         plane_to_blocks(plane), ref_plane, by, bx, q_table, min_err)
     n = coeffs.shape[0]
+    coeffs = coeffs.view(n, 256)
     mv_x, mv_y = mv_x.to(torch.int8), mv_y.to(torch.int8)
-    recon = decode_delta_blocks(coeffs, q_table, ref_plane, by, bx, mv_y, mv_x,
-                                has_coeff.to(torch.uint8), out)
-    return coeffs.view(n, 256), mv_x, mv_y, has_coeff, recon
+    if out is None:
+        out = torch.empty_like(ref_plane, memory_format=torch.contiguous_format)
+    if step is None:
+        step = plane_step(q_table, *plane.shape, plane.device)
+    recon = pframe_decode_plane(coeffs, mv_x, mv_y, has_coeff.view(torch.uint8),
+                                ref_plane, step, out)
+    return coeffs, mv_x, mv_y, has_coeff, recon
 
 
 def plane_mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,12 @@
 
 Per frame, each padded plane is encoded on the device (motion search for
 P-frames, then kernel K6, forward DCT + quantization) and reconstructed in
-the loop by K5 + K7, exactly as a decoder will; the dense coefficients come
+the loop by the frame step, one launch per plane, exactly as a decoder
+will; the dense coefficients come
 back to the host, where the shared C++ runtime entropy-codes the packet.
 The reconstructed previous frame stays on the device between frames, in two
-sets of planes that swap (K7 never writes over the plane it reads). The
+sets of planes that swap (the frame step never writes over the plane it
+reads). The
 bytes equal the JAX package's Encoder's.
 
 Quality is inverted (quirk Q4): 0 is the finest, 10 the coarsest.
@@ -21,7 +23,7 @@ import torch
 
 from pfv_torch import runtime
 from pfv_torch.device import (iframe_encode_plane, origins_for, pad_plane_host,
-                              pframe_encode_plane, plane_mse)
+                              pframe_encode_plane, plane_mse, plane_step)
 from pfv_torch.frame import VideoFrame, pad16
 from pfv_torch.ops.pframe import skip_threshold
 from pfv_torch.ops.quant import derive_q_tables
@@ -76,6 +78,9 @@ class Encoder:
         self._clear = {"y": 0, "u": 128, "v": 128}
         oy, oc = origins_for(*ly, self.device), origins_for(*lc, self.device)
         self._origins = {"y": oy, "u": oc, "v": oc}
+        # the in-loop frame step of each plane shape and q-table
+        self._steps = {qk: plane_step(self._qt_host[qk], *(ly if qk[-1] == "l" else lc),
+                                      self.device) for qk in self._qt_host}
         # the reconstructed previous frame (Y 0, U and V 128 before the
         # first), and the planes the next frame is reconstructed into
         self._prev = {k: torch.full(self._shapes[k], self._clear[k], dtype=torch.uint8,
@@ -126,7 +131,7 @@ class Encoder:
         coeffs = []
         for k, qk in zip(PLANES, ("intra_l", "intra_c", "intra_c")):
             c, _ = iframe_encode_plane(src[k], self._qt[qk], *self._origins[k],
-                                       self._back[k])
+                                       self._back[k], self._steps[qk])
             coeffs.append(c)
         self._swap()
         payload = runtime.encode_iframe_payload(torch.cat(coeffs).cpu().numpy(),
@@ -143,7 +148,7 @@ class Encoder:
         for k, qk in zip(PLANES, ("inter_l", "inter_c", "inter_c")):
             parts.append(pframe_encode_plane(src[k], self._prev[k], self._qt[qk],
                                              self._min_err, *self._origins[k],
-                                             self._back[k])[:4])
+                                             self._back[k], self._steps[qk])[:4])
         self._swap()
         coeffs, mvx, mvy, hc = (torch.cat(p).cpu().numpy() for p in zip(*parts))
         payload = runtime.encode_pframe_payload(coeffs, mvx, mvy, hc.astype(np.uint8),

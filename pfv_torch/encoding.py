@@ -2,13 +2,13 @@
 then the host mux (counterpart of pfv_tpu/encoding.py `encode_video`).
 
 The frames go to the device in one upload. Each frame is encoded plane by
-plane as the streaming Encoder does (motion search, K6, in-loop K5 + K7),
-and its coefficients, zeroed in skipped blocks, land in one (F, nb, 256)
-int16 buffer. One `torch.nonzero` compacts the clip (the JAX package needs
-a counting pass and a guessed cap for this: XLA has no data-dependent
-shapes), one copy brings the nonzeros and the block headers to the host,
-and the shared C++ runtime entropy-codes each frame from its nonzeros. The
-bytes equal the streaming Encoder's and the JAX package's.
+plane as the streaming Encoder does (motion search, K6, the in-loop frame
+step), and its coefficients, zeroed in skipped blocks, land in one
+(F, nb, 256) int16 buffer. One `torch.nonzero` compacts the clip (the JAX
+package needs a counting pass and a guessed cap for this: XLA has no
+data-dependent shapes), one copy brings the nonzeros and the block headers
+to the host, and the shared C++ runtime entropy-codes each frame from its
+nonzeros. The bytes equal the streaming Encoder's and the JAX package's.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from pfv_torch import runtime
-from pfv_torch.device import iframe_encode_plane, origins_for, pframe_encode_plane
+from pfv_torch.device import (iframe_encode_plane, origins_for, pframe_encode_plane,
+                              plane_step)
 from pfv_torch.enc import container_header
 from pfv_torch.frame import geometry
 from pfv_torch.ops.pframe import skip_threshold
@@ -77,6 +78,8 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
     shapes, clear = (ly, lc, lc), (0, 128, 128)
     oy, oc = origins_for(*ly, dev), origins_for(*lc, dev)
     origins = (oy, oc, oc)
+    steps = {qk: plane_step(t, *(ly if qk[-1] == "l" else lc), dev)
+             for qk, t in qt_host.items()}
     bounds = (0, g.yb, g.yb + g.cb, g.nb)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
@@ -98,13 +101,15 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
             for i in range(3):
                 sl = slice(bounds[i], bounds[i + 1])
                 if is_key[t]:
-                    q = qt["intra_l" if i == 0 else "intra_c"]
-                    c, _ = iframe_encode_plane(src[i][t], q, *origins[i], back[i])
+                    qk = "intra_l" if i == 0 else "intra_c"
+                    c, _ = iframe_encode_plane(src[i][t], qt[qk], *origins[i], back[i],
+                                               steps[qk])
                     live[t, sl] = c
                 else:
-                    q = qt["inter_l" if i == 0 else "inter_c"]
+                    qk = "inter_l" if i == 0 else "inter_c"
                     c, mx, my, coded, _ = pframe_encode_plane(
-                        src[i][t], prev[i], q, min_err, *origins[i], back[i])
+                        src[i][t], prev[i], qt[qk], min_err, *origins[i], back[i],
+                        steps[qk])
                     torch.mul(c, coded[:, None], out=live[t, sl])
                     mvx[t, sl], mvy[t, sl], hc[t, sl] = mx, my, coded
             prev, back = back, prev

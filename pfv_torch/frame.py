@@ -72,6 +72,14 @@ def canvas_planes(g: Geometry, canvas):
             c[..., g.lcw:2 * g.lcw])
 
 
+def canvas_layout(g: Geometry):
+    """The (Y, U, V) planes' places in the canvas, as `canvas_planes` cuts
+    them: (first block in the frame's raster-order blocks, origin row, origin
+    column, padded height, padded width) each."""
+    return ((0, 0, 0, g.ly0, g.lyw), (g.yb, g.ly0, 0, g.lc0, g.lcw),
+            (g.yb + g.cb, g.ly0, g.lcw, g.lc0, g.lcw))
+
+
 def slice_yuv(g: Geometry, canvas):
     """Views of the unpadded (..., H, W) Y and (..., H/2, W/2) U, V planes."""
     h, w = g.height, g.width

@@ -96,5 +96,7 @@ def lib() -> ctypes.CDLL:
             so.pfv_mc_reconstruct.restype = i
             so.pfv_fdct_blocks.argtypes = [p] * 4 + [i, p]
             so.pfv_fdct_blocks.restype = i
+            so.pfv_frame_step.argtypes = [p] * 4 + [i, p, i, i, i, p, ll, p, ll, p, i, p]
+            so.pfv_frame_step.restype = i
             _lib = so
         return _lib

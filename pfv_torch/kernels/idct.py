@@ -4,7 +4,9 @@ plain version.
 `decode_blocks` maps (N, 4, 64) int16 zigzag coefficients and a (64,) int32
 q-table to (N, 16, 16) u8 macroblocks, exactly as `ops.iframe.decode_blocks`
 does. A CPU tensor goes to `decode_blocks_plain`; a CUDA tensor launches the
-kernel or raises.
+kernel or raises. It is the port's form of the JAX package's per-plane
+`decode_blocks_pallas`; the decoders and the encoders run the frame step
+(kernels/frame_step.py) in its place.
 """
 
 from __future__ import annotations

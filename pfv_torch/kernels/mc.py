@@ -11,7 +11,9 @@ start outside the plane placed as `lax.dynamic_slice` places it
 (ops.motion.gather_predictions). The output
 never overlaps `ref`: a block's window may cover other blocks' outputs. A
 CPU tensor goes to `mc_reconstruct_plain`; a CUDA tensor launches the kernel
-or raises.
+or raises. It is the port's form of the JAX package's per-plane
+`mc_reconstruct_pallas`; the decoders and the encoders run the frame step
+(kernels/frame_step.py) in its place.
 """
 
 from __future__ import annotations

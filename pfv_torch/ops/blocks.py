@@ -17,11 +17,14 @@ def pad_dim(x: int, m: int = 16) -> int:
 
 
 def plane_to_blocks(plane: torch.Tensor) -> torch.Tensor:
-    """(H, W) -> (H/16 * W/16, 16, 16) macroblocks in raster order."""
+    """(H, W) -> (H/16 * W/16, 16, 16) macroblocks in raster order,
+    contiguous (for a plane one block high the reshape alone is a strided
+    view, which the kernels refuse)."""
     h, w = plane.shape
     if h % 16 or w % 16:
         raise ValueError(f"plane {h}x{w} is not whole 16x16 blocks")
-    return plane.reshape(h // 16, 16, w // 16, 16).permute(0, 2, 1, 3).reshape(-1, 16, 16)
+    return plane.reshape(h // 16, 16, w // 16, 16).permute(0, 2, 1, 3).reshape(
+        -1, 16, 16).contiguous()
 
 
 def blocks_to_plane(blocks: torch.Tensor, h: int, w: int) -> torch.Tensor:

@@ -133,10 +133,22 @@ def encode_iframe_payload(coeffs: np.ndarray, qidx) -> bytes:
                  coeffs.size * 4 + 1024)
 
 
-def decode_iframe_payload(payload: bytes, total_blocks: int):
-    """payload -> ((total_blocks, 256) int16 coeffs, (3,) uint8 q-table idx)."""
+def _out_array(out, shape, dtype) -> np.ndarray:
+    """A new array, or `out` checked to be a C-contiguous one of that shape
+    and dtype, flat."""
+    if out is None:
+        return np.empty(int(np.prod(shape)), dtype=dtype)
+    if out.shape != shape or out.dtype != dtype or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous {shape} {np.dtype(dtype)} array, "
+                         f"got {out.shape} {out.dtype}")
+    return out.reshape(-1)
+
+
+def decode_iframe_payload(payload: bytes, total_blocks: int, out=None):
+    """payload -> ((total_blocks, 256) int16 coeffs, (3,) uint8 q-table idx);
+    the coefficients are written into `out` (such an array) when given."""
     buf = np.frombuffer(payload, dtype=np.uint8)
-    coeffs = np.empty(total_blocks * 256, dtype=np.int16)
+    coeffs = _out_array(out, (total_blocks, 256), np.int16)
     qidx = np.empty(3, dtype=np.uint8)
     rc = get_lib().pfv_decode_iframe_payload(buf, len(payload), total_blocks * 4,
                                              coeffs, qidx)
@@ -181,14 +193,16 @@ def encode_pframe_payload(coeffs, mvx, mvy, has_coeff, qidx) -> bytes:
                  coeffs.size * 4 + 16 * total_blocks + 1024)
 
 
-def decode_pframe_payload(payload: bytes, total_blocks: int):
+def decode_pframe_payload(payload: bytes, total_blocks: int, out=None):
     """payload -> (coeffs (N,256) i16, mvx (N,) i8, mvy (N,) i8,
-    has_coeff (N,) u8, qidx (3,) u8)."""
+    has_coeff (N,) u8, qidx (3,) u8); written into `out`, the four arrays
+    (coeffs, mvx, mvy, has_coeff) of those shapes, when given."""
     buf = np.frombuffer(payload, dtype=np.uint8)
-    coeffs = np.empty(total_blocks * 256, dtype=np.int16)
-    mvx = np.empty(total_blocks, dtype=np.int8)
-    mvy = np.empty(total_blocks, dtype=np.int8)
-    has_coeff = np.empty(total_blocks, dtype=np.uint8)
+    n = total_blocks
+    coeffs, mvx, mvy, has_coeff = (
+        _out_array(o, s, d) for o, s, d in zip(
+            (None,) * 4 if out is None else out,
+            ((n, 256), (n,), (n,), (n,)), (np.int16, np.int8, np.int8, np.uint8)))
     qidx = np.empty(3, dtype=np.uint8)
     rc = get_lib().pfv_decode_pframe_payload(buf, len(payload), total_blocks,
                                              coeffs, mvx, mvy, has_coeff, qidx)

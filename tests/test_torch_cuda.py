@@ -24,7 +24,9 @@ from pfv_torch.encoding import encode_video
 from pfv_torch.kernels.dense_step import (seq_frames_dense, seq_frames_dense_plain,
                                           step_frames_batched_plain, step_gops,
                                           step_gops_plain)
+from pfv_torch.frame import canvas_layout
 from pfv_torch.kernels.fdct import fdct_blocks, fdct_blocks_plain
+from pfv_torch.kernels.frame_step import FrameStep
 from pfv_torch.kernels.idct import decode_blocks, decode_blocks_plain
 from pfv_torch.kernels.mc import mc_reconstruct, mc_reconstruct_plain
 from pfv_torch.kernels.rgba import canvas_rgba, canvas_rgba_plain
@@ -120,30 +122,89 @@ def test_mc_kernel_matches_plain_into_a_canvas_view(cuda, intra):
 def test_decoder_matches_reference(cuda, path):
     data = open(os.path.join(ROOT, path), "rb").read()
     n, ry, ru, rv, _ = runtime.ref_decode(data)
-    before = (decode_blocks.launches, mc_reconstruct.launches)
+    before = (FrameStep.launches, decode_blocks.launches, mc_reconstruct.launches)
     got = []
     dec = Decoder(io.BytesIO(data), device="cuda")
     while dec.advance_frame(got.append):
         pass
     assert len(got) == n
-    assert (decode_blocks.launches - before[0], mc_reconstruct.launches - before[1]) \
-        == (3 * n, 3 * n)
+    assert (FrameStep.launches - before[0], decode_blocks.launches - before[1],
+            mc_reconstruct.launches - before[2]) == (n, 0, 0)
     for i, f in enumerate(got):
         for p, r in zip((f.plane_y, f.plane_u, f.plane_v), (ry[i], ru[i], rv[i])):
             assert np.array_equal(p, r)
 
 
 def test_fallback_stream_runs_k5_k7_and_not_k1(cuda):
+    """The per-frame fallback: the frame step (K5 + K7 as one kernel) once
+    per frame, K1, K3, K5 and K7 never."""
     info, packets = split_packets(synth.random_stream(4112, 32, 4, seed=12))
     data = synth.container(4112, 32, info["qtables"], packets[1:])
     assert tdl.choose_route(data).gate == "first frame is intra"
-    before = (step_frames.launches, decode_blocks.launches, seq_frames_dense.launches)
+    counters = (step_frames, seq_frames_dense, decode_blocks, mc_reconstruct, FrameStep)
+    before = [fn.launches for fn in counters]
     y, u, v = tdl.decode_video_yuv(data, device="cuda")
-    assert step_frames.launches == before[0]
-    assert seq_frames_dense.launches == before[2]
-    assert decode_blocks.launches - before[1] == 9
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 0, 0, 3]
     for p, r in zip((y, u, v), runtime.ref_decode(data)[1:4]):
         assert np.array_equal(p.cpu().numpy(), r)
+
+
+def _frame_step_inputs(g, seed, intra, cuda):
+    """Random frame-step inputs of geometry g on the card: coefficients,
+    vectors of the int8 field's whole range (windows leave every plane
+    side) and coded flags or None, (4, 64) q-tables, prev and a sentinel
+    output canvas."""
+    rng = np.random.default_rng(seed)
+    coeffs = rng.integers(-400, 400, size=(g.nb, 256))
+    coeffs[rng.random(coeffs.shape) < 0.8] = 0
+    coeffs = torch.from_numpy(coeffs.astype(np.int16)).to(cuda)
+    motion = None if intra else tuple(
+        torch.from_numpy(a).to(cuda) for a in (
+            rng.integers(-128, 128, g.nb).astype(np.int8),
+            rng.integers(-128, 128, g.nb).astype(np.int8),
+            (rng.random(g.nb) < 0.5).astype(np.uint8)))
+    qt = rng.integers(1, 65536, size=(4, 64)).astype(np.int32)
+    prev = torch.from_numpy(rng.integers(0, 256, size=(g.chh, g.cw),
+                                         dtype=np.uint8)).to(cuda)
+    return coeffs, motion, qt, prev, torch.full_like(prev, 7)
+
+
+@pytest.mark.parametrize("intra", [True, False], ids=["I", "P"])
+@pytest.mark.parametrize("w,h", [(1920, 1080), (136, 90), (48, 16), (4112, 32)])
+def test_frame_step_kernel_matches_plain(cuda, w, h, intra):
+    g = tdl.geometry(w, h)
+    coeffs, motion, qt, prev, out = _frame_step_inputs(g, w + h, intra, cuda)
+    step = FrameStep(qt, canvas_layout(g), cuda)
+    qidx = (2, 0, 3)  # U and V on different tables
+    before = FrameStep.launches
+    step(coeffs, motion, qidx, prev, out)
+    assert FrameStep.launches - before == 1
+    host = FrameStep(qt, canvas_layout(g), "cpu")
+    want = host(coeffs.cpu(), None if intra else tuple(t.cpu() for t in motion), qidx,
+                prev.cpu(), torch.full_like(prev.cpu(), 7))
+    assert torch.equal(out.cpu(), want)
+    # the one-plane form, as the encoder calls it, on V's plane
+    first, row, col, ph, pw = canvas_layout(g)[2]
+    one = FrameStep(qt[1:2], [(0, 0, 0, ph, pw)], cuda)
+    sl = slice(first, first + (ph // 16) * (pw // 16))
+    plane = torch.empty((ph, pw), dtype=torch.uint8, device=cuda)
+    ref = prev[row:row + ph, col:col + pw].contiguous()
+    one(coeffs[sl].contiguous(), None if intra else tuple(t[sl].contiguous() for t in motion),
+        (0,), ref, plane)
+    want_one = FrameStep(qt, canvas_layout(g), "cpu")(
+        coeffs.cpu(), None if intra else tuple(t.cpu() for t in motion), (0, 0, 1),
+        prev.cpu(), torch.zeros_like(prev.cpu()))
+    assert torch.equal(plane.cpu(), want_one[row:row + ph, col:col + pw])
+
+
+def test_frame_step_raises_on_mixed_devices(cuda):
+    g = tdl.geometry(64, 48)
+    coeffs, motion, qt, prev, out = _frame_step_inputs(g, 1, False, cuda)
+    step = FrameStep(qt, canvas_layout(g), cuda)
+    with pytest.raises(ValueError):
+        step(coeffs.cpu(), motion, (0, 1, 1), prev, out)
+    with pytest.raises(ValueError):
+        step(coeffs, motion, (0, 1, 1), prev.cpu(), out)
 
 
 def test_new_kernels_raise_on_mixed_devices(cuda):
@@ -179,9 +240,12 @@ def test_encode_video_on_the_card_equals_the_cpu(cuda):
     w, h, f = 96, 64, 9
     frames = [synth.synth_yuv_frame(t, w, h) for t in range(f)]
     y, u, v = (np.stack([p[i] for p in frames]) for i in range(3))
-    before = fdct_blocks.launches
+    before = (fdct_blocks.launches, FrameStep.launches, decode_blocks.launches,
+              mc_reconstruct.launches)
     got = encode_video(y, u, v, 30, 3, 4, device="cuda")
-    assert fdct_blocks.launches - before == 3 * f
+    assert (fdct_blocks.launches - before[0], FrameStep.launches - before[1],
+            decode_blocks.launches - before[2], mc_reconstruct.launches - before[3]) \
+        == (3 * f, 3 * f, 0, 0)
     assert got == encode_video(y, u, v, 30, 3, 4, device="cpu")
 
 
@@ -240,14 +304,14 @@ def test_k4_matches_plain_over_gops(cuda):
 
 
 def test_dense_routes_launch_k3_and_k4_only(cuda):
-    counters = (step_frames, decode_blocks, mc_reconstruct, seq_frames_dense,
+    counters = (step_frames, decode_blocks, mc_reconstruct, FrameStep, seq_frames_dense,
                 step_gops)
     for key, kind, k3, k4 in ((1 << 30, "dense", 6, 0), (4, "gops", 0, 4)):
         data = synth.random_stream(4112, 64, 6, seed=33, keyframes=key)
         assert tdl.choose_route(data).kind == kind
         before = [fn.launches for fn in counters]
         got = tdl.decode_video_yuv(data, device="cuda")
-        assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 0, k3, k4]
+        assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 0, 0, k3, k4]
         for p, r in zip(got, runtime.ref_decode(data)[1:4]):
             assert np.array_equal(p.cpu().numpy(), r)
 

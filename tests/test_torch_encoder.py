@@ -152,6 +152,32 @@ def test_encoders_byte_identical_to_jax_and_oracle(clip, quality, interval):
     assert _stream(pfv_torch.Encoder, clip, quality, keys, device="cpu")[0] == want
 
 
+@pytest.mark.parametrize("quality", [0, 6])
+@pytest.mark.parametrize("w,h", [(18, 10), (64, 32), (48, 16)])
+def test_planes_one_macroblock_high_encode_like_jax(w, h, quality):
+    """Planes one macroblock high (luma at 64x32's chroma, 48x16's luma;
+    18x10 one block wide too): both encode entry points write the JAX
+    package's bytes, a keyframe every frame and every 3."""
+    f = 4
+    rng = np.random.default_rng(w * h + quality)
+    tex = [rng.integers(0, 256, size=(s[0] + f, s[1] + 2 * f), dtype=np.uint8)
+           for s in ((h, w), (h // 2, w // 2))]
+    # texture moving by (1, 2) pixels per frame
+    y, u, v = (np.stack([t[k:k + s[0], 2 * k:2 * k + s[1]] for k in range(f)])
+               for t, s in ((tex[0], (h, w)), (tex[1], (h // 2, w // 2)),
+                            (tex[1][::-1], (h // 2, w // 2))))
+    for interval in (1, 3):
+        want = jax_encode_video(y, u, v, framerate=FPS, quality=quality,
+                                keyframes=interval)
+        assert pfv_torch.encode_video(y, u, v, FPS, quality, interval, device="cpu") == want
+        buf = io.BytesIO()
+        with pfv_torch.Encoder(buf, w, h, FPS, quality, device="cpu") as enc:
+            for t in range(f):
+                frame = pfv_torch.VideoFrame(w, h, y[t], u[t], v[t])
+                (enc.encode_iframe if t % interval == 0 else enc.encode_pframe)(frame)
+        assert buf.getvalue() == want
+
+
 def test_explicit_keyframe_mask_and_dropframe(clip):
     mask = np.zeros(N_FRAMES, bool)
     mask[[0, 2, 7]] = True
