@@ -11,7 +11,10 @@ from the repository root. Phases, one line each:
      on the edge streams of pfv_torch.synth (widths 528, 1936 and 4096,
      height 16, the longest vectors the planes allow, P-frames with no
      coded block and with all coded), also with random vectors of the
-     7-bit field's whole range that leave the canvas on every side;
+     7-bit field's whole range that leave the canvas on every side; and K2
+     on random canvases that its vector path refuses in part or whole
+     (width % 8 == 4, width % 4 != 0, odd width, odd height, a V column
+     that is not 4-byte aligned);
   3. drive the main path (decode_video_yuv on all three corpora,
      decode_video_rgba on 1080p, decode_video_checksums on 512x384) and
      check it pixel-exact against the scalar reference decoder;
@@ -29,7 +32,7 @@ from the repository root. Phases, one line each:
      for the first I-frame and the first P-frame of both 1080p corpora; the
      frame step also with random vectors of the int8 field's whole range
      (windows that leave every plane), q-table indices that differ per
-     plane (U and V apart), and in its one-plane (encoder) form;
+     plane (U and V apart), and in its one-plane form (device.plane_step);
   8. drive the streaming Decoder over the three corpora at full length
      (advance_frame, every frame pixel-exact against the scalar reference;
      on 1080p also decode_all and reset with a second pass; advance_delta on
@@ -49,21 +52,25 @@ from the repository root. Phases, one line each:
      of the frames) and its advance_frame loop, and the per-frame fallback
      against the K1 path per 1080p clip (host clock, synchronized);
  11. rebuild the three corpora's source frames with pfv_torch.synth (no
-     JAX), and hold K6 (forward DCT + quantization) against its plain
-     version on the card: the intra entry on the 1080p first frame's three
-     padded planes, the delta entry on the first P-frame's blocks and the
-     motion search's winning windows;
+     JAX), and hold K6 (the frame-encode step: forward DCT + quantization
+     of a frame's three planes in one launch) against its plain version on
+     the card: on the 1080p first frame (intra), on the first P-frame with
+     the motion search's vectors and flags, and on that P-frame with random
+     vectors that leave every plane, random flags and U and V on different
+     q-tables; and its per-plane entry fdct_blocks on the same frames' blocks
+     and the search's winning windows;
  12. drive encode_video (quality 2, a keyframe every 60, as the corpora
      were written) over the three sources and check each output's sha256
      against the committed corpus, which the JAX package's encoder wrote;
-     check the launch counts of that run: K6 and the frame step three times
-     (Y, U, V) per frame encoded, K1, K2, K5 and K7 never;
+     check the launch counts of that run: K6 and the in-loop frame step once
+     per frame encoded, K6's per-plane entry, K1, K2, K5 and K7 never;
  13. drive the streaming Encoder over the 512x384 source and the first GOP
      of the 1080p pan: its bytes equal encode_video's, and the scalar
      reference decoder's frames of the 512x384 output equal the Encoder's
      own in-loop reconstruction; launch counts as in 12;
- 14. time K6 per 1080p frame (CUDA events with the wrapper, profiler device
-     time, plain version alternating), encode_video's frames/s per corpus,
+ 14. time K6 per 1080p frame, an I-frame and a P-frame (CUDA events around
+     one wrapped call, 100 calls back to back, the profiler's device time,
+     the plain version alternating), encode_video's frames/s per corpus,
      each layer of a whole 1080p encode (source H2D, motion search, K6,
      the in-loop frame step, compaction and D2H, host mux; each
      synchronized) and
@@ -142,9 +149,10 @@ RATES = {}
 # column and a row transform, then shift, offset, two clamps and the byte
 # pack; the dense frame step and the per-plane frame step widen each
 # coefficient they load (one more).
-# Per forward-transformed coefficient (K6): the residual (subtract, two
-# clamps, a truncating halving, a shift), two transforms, scale, shift and
-# divide. Frame steps (step_common.cuh store_tile), per 16-pixel row of a
+# Per forward-transformed coefficient (K6): the residual by byte-wise SIMD
+# (6 per 4 pixels) and the widening (2), two transforms, then scale, shift,
+# magnitude, the reciprocal multiply (2), the sign (2) and the pack. Frame
+# steps (step_common.cuh store_tile), per 16-pixel row of a
 # P-frame block: 4 funnel shifts where the window is not 4-byte aligned
 # (dx % 4 != 0), the select where the block is coded (6 SIMD operations per
 # 4 pixels); an intra row is a copy. K1 per unit word: sign-extend the
@@ -153,7 +161,7 @@ RATES = {}
 # and packing, float32.
 DCT8_OPS = 36 + 3 * 12 + 6
 IDCT_OPS = 1 + 2 * DCT8_OPS / 8 + 5
-FDCT_OPS = 5 + 2 * DCT8_OPS / 8 + 3
+FDCT_OPS = 4 + 2 * DCT8_OPS / 8 + 8
 SHIFT_OPS, SELECT_OPS, UNIT_OPS, MC_OPS, RGBA_OPS = 4, 24, 4, 5, 15
 # the corpora's sources: width, height, frames, generator (bench.py CONFIGS)
 SOURCES = {
@@ -162,6 +170,14 @@ SOURCES = {
     "1080p": (1920, 1080, 120, "std"),
 }
 QUALITY, KEYFRAMES, FPS = 2, 60, 30
+# K2 on random (3, 160, 256) canvases: height, width, first chroma row, V column
+K2_EDGES = {
+    "width % 8 == 4": (90, 132, 96, 112),
+    "width % 4 != 0": (90, 134, 96, 112),
+    "odd height": (89, 136, 96, 112),
+    "V column not 4-byte aligned": (90, 100, 96, 70),
+    "odd width and height, odd V column": (77, 131, 96, 67),
+}
 ENC_REPS = 3
 
 
@@ -310,7 +326,7 @@ def gop_steps(g, per_step, qmul, out):
 
 def counts():
     from pfv_torch.kernels.dense_step import seq_frames_dense, step_gops
-    from pfv_torch.kernels.fdct import fdct_blocks
+    from pfv_torch.kernels.fdct import FrameEncode, fdct_blocks
     from pfv_torch.kernels.frame_step import FrameStep
     from pfv_torch.kernels.idct import decode_blocks
     from pfv_torch.kernels.mc import mc_reconstruct
@@ -318,8 +334,8 @@ def counts():
     from pfv_torch.kernels.step import step_frames
 
     return {"K1": step_frames, "K2": canvas_rgba, "K3": seq_frames_dense,
-            "K4": step_gops, "K5": decode_blocks, "K6": fdct_blocks,
-            "K7": mc_reconstruct, "FS": FrameStep}
+            "K4": step_gops, "K5": decode_blocks, "K6": FrameEncode,
+            "K6 per plane": fdct_blocks, "K7": mc_reconstruct, "FS": FrameStep}
 
 
 def zero_counts() -> None:
@@ -416,6 +432,35 @@ def frame_step_bound(g, motion):
                  (IDCT_OPS + 1) * 256 * n + 16 * (SHIFT_OPS * shifted + SELECT_OPS * coded))
 
 
+def frame_encode_bound(g, motion):
+    """Bound of the frame-encode step on one frame of geometry g: the source
+    planes read once (1 B per pixel), the coefficients written once (512 B
+    per block, zeros included), for a P-frame the 3 B header of each block
+    and the prediction window of each coded block (256 B); FDCT_OPS per
+    coefficient of a transformed block (every block of an I-frame, the
+    coded ones of a P-frame). motion: (mvy, mvx, hc) or None (I-frame)."""
+    px = 256 * g.nb
+    if motion is None:
+        n, extra = g.nb, 0
+    else:
+        n = int((motion[2] != 0).sum())
+        extra = 3 * g.nb + 256 * n
+    return bound(px + 512 * g.nb + extra, FDCT_OPS * 256 * n)
+
+
+def frame_encode_vs_plain(step, sources, motion, qidx, prev) -> int:
+    """The frame-encode step on the card against its plain version on the
+    same inputs, each into a buffer filled with 7 -> the largest absolute
+    difference."""
+    from pfv_torch.kernels.fdct import frame_encode_plain
+
+    got, want = (torch.full((step.blocks, 256), 7, dtype=torch.int16,
+                            device=sources[0].device) for _ in range(2))
+    step(sources, motion, qidx, prev, got)
+    frame_encode_plain(sources, motion, step.qtables, qidx, step.layout, prev, want)
+    return max_abs_err(got, want)
+
+
 def synth_sources(pool):
     """The corpora's source frames as (Y, U, V) uint8 stacks, per corpus."""
     from pfv_torch import synth
@@ -460,13 +505,9 @@ def encode_layers(planes, w, h, dev):
     """One encode of a clip through encode_video's layers, each ending in a
     synchronize -> (bytes, ms per layer)."""
     from pfv_torch import runtime
-    from pfv_torch.device import (iframe_decode_plane, origins_for, pframe_decode_plane,
-                                  plane_step)
+    from pfv_torch.device import INTER_Q, INTRA_Q, FrameEncoder
     from pfv_torch.enc import container_header
     from pfv_torch.frame import geometry
-    from pfv_torch.kernels.fdct import fdct_blocks
-    from pfv_torch.ops.blocks import plane_to_blocks
-    from pfv_torch.ops.motion import motion_search
     from pfv_torch.ops.pframe import skip_threshold
     from pfv_torch.ops.quant import derive_q_tables
 
@@ -484,56 +525,31 @@ def encode_layers(planes, w, h, dev):
     g = geometry(w, h)
     shapes = ((g.ly0, g.lyw), (g.lc0, g.lcw), (g.lc0, g.lcw))
     qt_host = derive_q_tables(QUALITY)
-    qt = {k: torch.from_numpy(t).to(dev) for k, t in qt_host.items()}
-    min_err = skip_threshold(QUALITY)
-    origins = [origins_for(*s, dev) for s in shapes]
-    steps = {qk: plane_step(t, *shapes[0 if qk[-1] == "l" else 1], dev)
-             for qk, t in qt_host.items()}
-    bounds = (0, g.yb, g.yb + g.cb, g.nb)
     padded = []
     for p, s, c in zip(planes, shapes, (0, 128, 128)):
         a = np.full((f, *s), c, dtype=np.uint8)
         a[:, :p.shape[1], :p.shape[2]] = p
         padded.append(a)
     lap("host pad")
+    enc = FrameEncoder(g, qt_host, skip_threshold(QUALITY), dev)
     src = [torch.from_numpy(a).to(dev) for a in padded]
     lap("source H2D")
     live = torch.empty((f, g.nb, 256), dtype=torch.int16, device=dev)
     mvx = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
     mvy = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
-    hc = torch.ones((f, g.nb), dtype=torch.bool, device=dev)
-    prev = [torch.full(s, c, dtype=torch.uint8, device=dev)
-            for s, c in zip(shapes, (0, 128, 128))]
-    back = [torch.empty_like(p) for p in prev]
+    hc = torch.ones((f, g.nb), dtype=torch.uint8, device=dev)
+    enc.check([p[0] for p in src], live[0], (mvy[0], mvx[0], hc[0]))
     lap("compaction+D2H")
     for t in range(f):
-        key = t % KEYFRAMES == 0
-        for i in range(3):
-            sl, (by, bx) = slice(bounds[i], bounds[i + 1]), origins[i]
-            blocks = plane_to_blocks(src[i][t])
-            qk = ("intra_" if key else "inter_") + ("l" if i == 0 else "c")
-            q = qt[qk]
-            if key:
-                lap("motion search")
-                c = fdct_blocks(blocks, q)
-                lap("K6")
-                iframe_decode_plane(c.view(-1, 256), steps[qk], back[i])
-                lap("in-loop frame step")
-                live[t, sl] = c.view(-1, 256)
-            else:
-                mx, my, err, win = motion_search(blocks, prev[i], by, bx)
-                coded = err.to(torch.float32) > float(min_err)
-                lap("motion search")
-                c = fdct_blocks(blocks, q, win)
-                lap("K6")
-                mx, my = mx.to(torch.int8), my.to(torch.int8)
-                pframe_decode_plane(c.view(-1, 256), mx, my, coded.view(torch.uint8),
-                                    prev[i], steps[qk], back[i])
-                lap("in-loop frame step")
-                torch.mul(c.view(-1, 256), coded[:, None], out=live[t, sl])
-                mvx[t, sl], mvy[t, sl], hc[t, sl] = mx, my, coded
-            lap("compaction+D2H")
-        prev, back = back, prev
+        cur = [p[t] for p in src]
+        motion = None if t % KEYFRAMES == 0 else (mvy[t], mvx[t], hc[t])
+        if motion is not None:
+            enc.search(cur, motion)
+            lap("motion search")
+        enc.transform(cur, motion, live[t])
+        lap("K6")
+        enc.reconstruct(live[t], motion)
+        lap("in-loop frame step")
     flat = live.view(f, -1)
     frame_of, idx = torch.nonzero(flat, as_tuple=True)
     val, counts = flat[frame_of, idx], torch.bincount(frame_of, minlength=f)
@@ -546,11 +562,10 @@ def encode_layers(planes, w, h, dev):
         lo, hi = ends[t] - counts[t], ends[t]
         if t % KEYFRAMES == 0:
             payload = runtime.encode_iframe_payload_sparse(idx[lo:hi], val[lo:hi],
-                                                           g.nb, (0, 1, 1))
+                                                           g.nb, INTRA_Q)
         else:
             payload = runtime.encode_pframe_payload_sparse(
-                idx[lo:hi], val[lo:hi], mvx[t], mvy[t], hc[t].astype(np.uint8),
-                (2, 3, 3))
+                idx[lo:hi], val[lo:hi], mvx[t], mvy[t], hc[t], INTER_Q)
         out += [struct.pack("<BI", 1 if t % KEYFRAMES == 0 else 2, len(payload)),
                 payload]
     out.append(struct.pack("<BI", 0, 0))
@@ -634,6 +649,14 @@ def main() -> int:
               f"ref_decode: {exact}; with random vectors in [-64, 63]: max_abs_err {ew}")
         check(exact, f"K1 on the edge stream {name} differs from ref_decode")
         err_k1 = max(err_k1, e1, ew)
+    canv = torch.randint(0, 256, (3, 160, 256), dtype=torch.uint8, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    edges = {k: max_abs_err(dl.rgba_view(canvas_rgba(canv, *geo)),
+                            dl.rgba_view(canvas_rgba_plain(canv, *geo)))
+             for k, geo in K2_EDGES.items()}
+    print("phase 2 K2 vs plain on random canvases off its vector path, max_abs_err: "
+          + ", ".join(f"{k} {K2_EDGES[k][1::-1]} {e}" for k, e in edges.items()))
+    err_k2 = max(err_k2, *edges.values())
     check(err_k1 == 0 and err_k2 == 0, "a kernel disagrees with its plain version")
 
     zero_counts()
@@ -982,10 +1005,12 @@ def main() -> int:
 
     # phase 11: the sources, then K6 against its plain version
     from pfv_torch import encode_video
-    from pfv_torch.device import iframe_encode_plane, origins_for, pad_plane_host
-    from pfv_torch.kernels.fdct import fdct_blocks, fdct_blocks_plain
+    from pfv_torch.device import (INTER_Q, INTRA_Q, FrameEncoder, iframe_encode_plane,
+                                  origins_for, pad_plane_host)
+    from pfv_torch.kernels.fdct import fdct_blocks, fdct_blocks_plain, frame_encode_plain
     from pfv_torch.ops.blocks import plane_to_blocks
     from pfv_torch.ops.motion import motion_search
+    from pfv_torch.ops.pframe import skip_threshold
     from pfv_torch.ops.quant import derive_q_tables
 
     t0 = time.perf_counter()
@@ -994,26 +1019,47 @@ def main() -> int:
     print(f"phase 11 sources rebuilt with pfv_torch.synth: " + ", ".join(
         f"{k} {tuple(v[0].shape)}" for k, v in srcs.items())
         + f" in {time.perf_counter() - t0:.1f} s ({card})")
-    qt = {k: torch.from_numpy(v).to(dev) for k, v in derive_q_tables(QUALITY).items()}
     g = dl.geometry(1920, 1080)
+    shapes = (((g.ly0, g.lyw), 0), ((g.lc0, g.lcw), 128), ((g.lc0, g.lcw), 128))
+    src0, src1 = ([pad_plane_host(srcs["1080p"][i][t], *shape, clear, dev)
+                   for i, (shape, clear) in enumerate(shapes)] for t in (0, 1))
+    fe = FrameEncoder(g, derive_q_tables(QUALITY), skip_threshold(QUALITY), dev)
+    k6_co = torch.empty((g.nb, 256), dtype=torch.int16, device=dev)
+    headers = torch.zeros((3, g.nb), dtype=torch.int8, device=dev)
+    k6_motion = (headers[0], headers[1], headers[2].view(torch.uint8))
+    fe.check(src0, k6_co, k6_motion)
+    err_k6 = {"frame 0, intra": frame_encode_vs_plain(fe.encode, src0, None, INTRA_Q, None)}
+    fe.iframe(src0, k6_co)
+    k6_prev = fe.prev  # frame 0 as a decoder shows it
+    fe.search(src1, k6_motion)
+    err_k6["frame 1, P, the search's vectors and flags"] = frame_encode_vs_plain(
+        fe.encode, src1, k6_motion, INTER_Q, k6_prev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    wild = (*random_vectors(k6_motion, 110)[:2],
+            torch.randint(0, 2, (g.nb,), generator=gen, device=dev, dtype=torch.uint8))
+    err_k6["frame 1, P, random vectors in [-64, 63], random flags, q (3, 0, 1)"] = \
+        frame_encode_vs_plain(fe.encode, src1, wild, (3, 0, 1), k6_prev)
+    print(f"phase 11 K6 (frame-encode step) vs plain, 1080p ({g.nb} blocks, "
+          f"{int(k6_motion[2].sum())} coded by the search, {int(wild[2].sum())} by the "
+          "random flags), max_abs_err: " + ", ".join(f"{k}: {e}" for k, e in err_k6.items()))
+    qt = {k: torch.from_numpy(v).to(dev) for k, v in derive_q_tables(QUALITY).items()}
     k6_in = {"intra": [], "delta": []}
-    for i, (shape, clear) in enumerate((((g.ly0, g.lyw), 0), ((g.lc0, g.lcw), 128),
-                                        ((g.lc0, g.lcw), 128))):
-        f0, f1 = (pad_plane_host(srcs["1080p"][i][t], *shape, clear, dev) for t in (0, 1))
+    for i, (shape, _) in enumerate(shapes):
         by, bx = origins_for(*shape, dev)
         qi, qp = qt["intra_l" if i == 0 else "intra_c"], qt["inter_l" if i == 0 else "inter_c"]
-        _, recon = iframe_encode_plane(f0, qi, by, bx)
-        b1 = plane_to_blocks(f1)
-        k6_in["intra"].append((plane_to_blocks(f0), qi))
+        _, recon = iframe_encode_plane(src0[i], qi, by, bx)
+        b1 = plane_to_blocks(src1[i])
+        k6_in["intra"].append((plane_to_blocks(src0[i]), qi))
         k6_in["delta"].append((b1, qp, motion_search(b1, recon, by, bx)[3]))
-    err_k6 = 0
     for entry, args in k6_in.items():
         e = max(max_abs_err(fdct_blocks(*a), fdct_blocks_plain(*a)) for a in args)
-        print(f"phase 11 K6 vs plain, 1080p frame {0 if entry == 'intra' else 1} "
-              f"({entry} entry, Y/U/V {[a[0].shape[0] for a in args]} blocks): "
-              f"max_abs_err {e}")
-        err_k6 = max(err_k6, e)
+        print(f"phase 11 K6's per-plane entry fdct_blocks vs plain, 1080p frame "
+              f"{0 if entry == 'intra' else 1} ({entry} entry, Y/U/V "
+              f"{[a[0].shape[0] for a in args]} blocks): max_abs_err {e}")
+        err_k6[entry] = e
+    err_k6 = max(err_k6.values())
     check(err_k6 == 0, "K6 disagrees with its plain version")
+    del k6_in
 
     # phase 12: encode_video, the encode main path, against the JAX bytes
     zero_counts()
@@ -1033,10 +1079,11 @@ def main() -> int:
     enc_frames = sum(v[2] for v in SOURCES.values())
     print(f"phase 12 launches in the encode run: {enc_launches} (frames encoded "
           f"{enc_frames})")
-    check(enc_launches["K6"] == enc_launches["FS"] == 3 * enc_frames,
-          "K6 and the frame step were not launched three times per encoded frame")
+    check(enc_launches["K6"] == enc_launches["FS"] == enc_frames,
+          "K6 and the frame step were not launched once per encoded frame")
     check(enc_launches["K1"] == enc_launches["K2"] == enc_launches["K5"]
-          == enc_launches["K7"] == 0, "the encoder launched K1, K2, K5 or K7")
+          == enc_launches["K7"] == enc_launches["K6 per plane"] == 0,
+          "the encoder launched K1, K2, K5, K7 or K6's per-plane entry")
 
     # phase 13: the streaming Encoder, and the round trip
     zero_counts()
@@ -1058,31 +1105,35 @@ def main() -> int:
     st_launches = read_counts()
     print(f"phase 13 launches in the Encoder run: {st_launches} (frames encoded "
           f"{n + KEYFRAMES})")
-    check(st_launches["K6"] == st_launches["FS"] == 3 * (n + KEYFRAMES),
-          "the Encoder did not launch K6 and the frame step 3x per frame")
-    check(st_launches["K5"] == st_launches["K7"] == 0, "the Encoder launched K5 or K7")
+    check(st_launches["K6"] == st_launches["FS"] == n + KEYFRAMES,
+          "the Encoder did not launch K6 and the frame step once per frame")
+    check(st_launches["K1"] == st_launches["K2"] == st_launches["K5"]
+          == st_launches["K7"] == st_launches["K6 per plane"] == 0,
+          "the Encoder launched K1, K2, K5, K7 or K6's per-plane entry")
 
     # phase 14: times
-    times["K6"] = {e: paired_ms(lambda: [fdct_blocks(*a) for a in args],
-                                lambda: [fdct_blocks_plain(*a) for a in args])
-                   for e, args in k6_in.items()}
-    bounds["K6"] = bound(sum(nbytes(*a) + 2 * a[0].numel() for a in k6_in["delta"]),
-                         FDCT_OPS * sum(a[0].numel() for a in k6_in["delta"]))
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            for args in k6_in.values():
-                for a in args:
-                    fdct_blocks(*a)
-        torch.cuda.synchronize()
-    k6_us = {e: sum(getattr(ev, "device_time_total", 0) for ev in prof.key_averages()
-                    if f"fdct_kernel<{flag}>" in ev.key) / 10
-             for e, flag in (("intra", "false"), ("delta", "true"))}
-    print("phase 14 K6 per 1080p frame (Y, U, V): " + "; ".join(
-        f"{e} entry: kernel {times['K6'][e][0]:.4f} ms with the wrapper, plain "
-        f"{times['K6'][e][1]:.4f} ms, device time "
-        + (f"{k6_us[e]:.2f} us" if k6_us[e] else "not measured (no device time seen)")
-        for e in k6_in) + f" ({card})")
+    k6_calls = {"I": (src0, None, INTRA_Q, None), "P": (src1, k6_motion, INTER_Q, k6_prev)}
+    times["K6"], bounds["K6"], k6_run, k6_us = {}, {}, {}, {}
+    for kind, args in k6_calls.items():
+        def k6_frame():
+            fe.encode.launch(*args, k6_co)
+
+        def k6_plain():
+            frame_encode_plain(args[0], args[1], fe.encode.qtables, args[2],
+                               fe.encode.layout, args[3], k6_co)
+
+        times["K6"][kind] = paired_ms(k6_frame, k6_plain)
+        bounds["K6"][kind] = frame_encode_bound(g, args[1])
+        k6_run[kind] = timed_ms(lambda: [k6_frame() for _ in range(100)]) / 100
+        k6_us[kind] = 1e3 * device_ms(k6_frame, "frame_encode_kernel", reps=10)
+    print("phase 14 K6 per 1080p frame (Y, U and V in one call): " + "; ".join(
+        f"{kind}-frame ({g.nb if kind == 'I' else int(k6_motion[2].sum())} of {g.nb} "
+        f"blocks coded): one wrapped call {times['K6'][kind][0]:.4f} ms, 100 back to "
+        f"back {k6_run[kind]:.4f} ms per frame, plain {times['K6'][kind][1]:.4f} ms, "
+        f"device time "
+        + (f"{k6_us[kind]:.2f} us" if k6_us[kind] else "not measured (no device time seen)")
+        + f", bound {1e3 * bounds['K6'][kind][0]:.3f} us ({bounds['K6'][kind][1]})"
+        for kind in k6_calls) + f" ({card})")
     fps = {}
     for name, planes in srcs.items():
         runs = [host_ms(lambda: encode_video(*planes, FPS, QUALITY, KEYFRAMES,
@@ -1329,8 +1380,9 @@ def main() -> int:
                      "pfv_tpu/ops/pallas/idct_kernel.py:59", dec_launches["K5"], err_k5,
                      times["K5"], bounds["K5"]),
         kernel_entry("fdct_quantize", "pfv_torch/csrc/fdct_kernel.cu",
-                     "pfv_tpu/ops/pallas/dct_kernel.py:61", enc_launches["K6"], err_k6,
-                     times["K6"]["delta"], bounds["K6"]),
+                     "pfv_tpu/ops/pallas/dct_kernel.py:61",
+                     enc_launches["K6"] + st_launches["K6"], err_k6, times["K6"]["P"],
+                     bounds["K6"]["P"]),
         kernel_entry("mc_reconstruct", "pfv_torch/csrc/mc_kernel.cu",
                      "pfv_tpu/ops/pallas/mc_kernel.py:31", dec_launches["K7"], err_k7,
                      times["K7"], bounds["K7"]),
@@ -1346,7 +1398,8 @@ def main() -> int:
     sides = [("K1 1080p", bounds["K1"]), ("K2 1080p", bounds["K2"])] + [
         (f"{k} {n}", bounds[(k, n)]) for k, n in (("K3", "8K UHD"), ("K3", "1080p"),
                                                   ("K4", "512x384"), ("K4", "1080p"))] + [
-        (k, bounds[k]) for k in ("K5", "K6", "K7")] + [
+        (k, bounds[k]) for k in ("K5", "K7")] + [
+        (f"K6, 1080p {kind}-frame", b) for kind, b in bounds["K6"].items()] + [
         ("frame step, 1080p P-frame", bounds["FS"])]
     for name, b in sides:
         print(f"bound {name}: {b[0]:.5f} ms ({b[1]}): bytes {b[2]:.5f} ms, operations "

@@ -55,6 +55,7 @@ namespace {
 using pfv::kLanes;
 using pfv::kMbs;
 using pfv::kThreads;
+using pfv::window_start;
 
 constexpr int kMaxPlanes = 3;
 
@@ -80,10 +81,6 @@ struct Planes {
   Plane p[kMaxPlanes];
   int n;
 };
-
-__device__ __forceinline__ int window_start(int s, int n) {
-  return min(max(s < 0 ? s + n : s, 0), n - 16);
-}
 
 __global__ void __launch_bounds__(kThreads, 4)
 frame_step_kernel(const int16_t* __restrict__ coeffs, const int8_t* __restrict__ mvy,

@@ -2,7 +2,9 @@
 // the tile demux's units) and K3/K4 (dense_step_kernel.cu, fed by dense
 // coefficients), and their launch; the per-plane frame step of the
 // streaming decoder and the encoder (frame_step_kernel.cu) takes the tile,
-// mark_needed, residual, window16 and inter4. One CTA of kThreads threads
+// mark_needed, residual, window_start, window16 and inter4; the encoder's
+// frame-encode step (fdct_kernel.cu) the tile, mark_needed, window_start and
+// window16. One CTA of kThreads threads
 // reconstructs a 16-row stripe s of the fused Y|UV canvas over kCols
 // columns: kLanes coefficient lanes, kMbs macroblocks. Its stages:
 //
@@ -126,6 +128,14 @@ __device__ __forceinline__ void residual(Tile& t, const int* __restrict__ q) {
         make_uint2(px[0], px[1]);
   }
   __syncthreads();
+}
+
+// Where a 16-pixel window whose start is s lies on an axis of n pixels, for
+// any int8 vector: a negative start counts from the end of the axis, then
+// the start clamps to [0, n - 16] (lax.dynamic_slice's rule, which the plain
+// versions follow in ops/motion.py gather_predictions).
+__device__ __forceinline__ int window_start(int s, int n) {
+  return min(max(s < 0 ? s + n : s, 0), n - 16);
 }
 
 // The 16 bytes row[sx .. sx+15] as four little-endian words, from aligned

@@ -1,14 +1,21 @@
-"""Whole-plane encode and decode steps on one device (counterpart of
-pfv_tpu/device.py).
+"""Whole-plane and whole-frame encode and decode steps on one device
+(counterpart of pfv_tpu/device.py).
 
 Each decode step decodes every macroblock of one padded plane in one
 launch of the frame step (kernels/frame_step.py, one descriptor): the
 blocks land in the output plane in raster order, P blocks from the window
 of the reference plane. The output may be a strided view of a fused canvas;
-it never overlaps the reference. Each encode step encodes every macroblock
-of a plane (K6, after the motion search for P) and reconstructs it in the
-loop through the decode step, so the reconstruction the next frame is
-predicted from never leaves the device.
+it never overlaps the reference. The per-plane encode steps encode every
+macroblock of a plane (K6's per-plane entry, after the motion search for P)
+and reconstruct it through the decode step.
+
+The encoders work a frame at a time, through a `FrameEncoder`: the
+reconstruction lives in two fused canvases that swap, and a frame costs, for
+a P-frame, three motion searches against views of the previous canvas, then
+one launch of the frame-encode step (kernels/fdct.py, K6: Y, U and V) and
+one of the frame step, which reconstructs the frame exactly as a decoder
+will. The reconstruction the next frame is predicted from never leaves the
+device.
 """
 
 from __future__ import annotations
@@ -16,10 +23,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pfv_torch.frame import Geometry, canvas_layout, canvas_planes
+from pfv_torch.kernels.fdct import FrameEncode
 from pfv_torch.kernels.frame_step import FrameStep, plane_layout
 from pfv_torch.ops.blocks import block_origins, plane_to_blocks
 from pfv_torch.ops.iframe import encode_blocks_best
+from pfv_torch.ops.motion import motion_search
 from pfv_torch.ops.pframe import encode_plane_delta
+
+QT_KEYS = ("intra_l", "intra_c", "inter_l", "inter_c")  # the container's order
+INTRA_Q, INTER_Q = (0, 1, 1), (2, 3, 3)  # q-table indices of (Y, U, V)
 
 
 def origins_for(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -29,7 +42,7 @@ def origins_for(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 def plane_step(q_table, h: int, w: int, device) -> FrameStep:
     """The frame step of one padded (h, w) plane over one (64,) q-table
-    (host values): the decode steps' and the encoders' in-loop step."""
+    (host values): the per-plane decode steps'."""
     if isinstance(q_table, torch.Tensor):
         q_table = q_table.cpu().numpy()
     return FrameStep(np.asarray(q_table).reshape(1, 64), plane_layout(h, w), device)
@@ -49,43 +62,112 @@ def pframe_decode_plane(coeffs, mvx, mvy, has_coeff, ref_plane, step: FrameStep,
     return step(coeffs, (mvy, mvx, has_coeff), (0,), ref_plane, out)
 
 
-def iframe_encode_plane(plane, q_table, by, bx, out=None, step=None):
+def iframe_encode_plane(plane, q_table, by, bx):
     """Padded (H, W) u8 plane -> ((N, 256) i16 coeffs, its (H, W) u8
-    reconstruction, written into `out` if given). by, bx: the raster
-    origins, which the decode step implies; `step`: the plane's
-    `plane_step` over q_table, made here when not given (an encoder makes
-    it once)."""
+    reconstruction). by, bx: the raster origins, which the decode step
+    implies."""
     del by, bx
     coeffs = encode_blocks_best(plane_to_blocks(plane), q_table)
     coeffs = coeffs.view(coeffs.shape[0], 256)
-    if out is None:
-        out = torch.empty_like(plane, memory_format=torch.contiguous_format)
-    if step is None:
-        step = plane_step(q_table, *plane.shape, plane.device)
+    out = torch.empty_like(plane, memory_format=torch.contiguous_format)
+    step = plane_step(q_table, *plane.shape, plane.device)
     return coeffs, iframe_decode_plane(coeffs, step, out)
 
 
-def pframe_encode_plane(plane, ref_plane, q_table, min_err, by, bx, out=None,
-                        step=None):
+def pframe_encode_plane(plane, ref_plane, q_table, min_err, by, bx):
     """Inter-encode one padded plane against the reconstructed previous
     plane `ref_plane`.
 
     Returns (coeffs (N, 256) i16, mv_x (N,) int8, mv_y (N,) int8,
-    has_coeff (N,) bool, recon (H, W) u8, written into `out` if given;
-    `out` must not overlap `ref_plane`). `step` as `iframe_encode_plane`'s.
+    has_coeff (N,) bool, recon (H, W) u8).
     """
     coeffs, mv_x, mv_y, has_coeff = encode_plane_delta(
         plane_to_blocks(plane), ref_plane, by, bx, q_table, min_err)
     n = coeffs.shape[0]
     coeffs = coeffs.view(n, 256)
     mv_x, mv_y = mv_x.to(torch.int8), mv_y.to(torch.int8)
-    if out is None:
-        out = torch.empty_like(ref_plane, memory_format=torch.contiguous_format)
-    if step is None:
-        step = plane_step(q_table, *plane.shape, plane.device)
+    out = torch.empty_like(ref_plane, memory_format=torch.contiguous_format)
+    step = plane_step(q_table, *plane.shape, plane.device)
     recon = pframe_decode_plane(coeffs, mv_x, mv_y, has_coeff.view(torch.uint8),
                                 ref_plane, step, out)
     return coeffs, mv_x, mv_y, has_coeff, recon
+
+
+class FrameEncoder:
+    """Encodes one frame at a time on `device` and reconstructs it in the
+    loop, in three steps that can be timed apart: `search` (the motion
+    search of a P-frame, plain PyTorch), `transform` (the frame-encode step,
+    one launch for Y, U and V) and `reconstruct` (the frame step, one
+    launch, then the canvases swap); `iframe` and `pframe` run them in
+    order.
+
+    g: the stream's geometry; qtables: `ops.quant.derive_q_tables`' dict;
+    min_err: `ops.pframe.skip_threshold`'s value. A frame's `sources` are its
+    three padded (Y, U, V) u8 planes on the device, `coeffs` the (nb, 256)
+    i16 buffer its coefficients go to (zeros in blocks without
+    coefficients), `motion` the (mvy, mvx, has_coeff) (nb,) int8, int8, uint8
+    rows a P-frame's block headers go to. `check` holds them to the kernels
+    once; the steps run unchecked."""
+
+    def __init__(self, g: Geometry, qtables: dict, min_err, device):
+        self.g = g
+        self.min_err = float(min_err)
+        qt = np.stack([qtables[k] for k in QT_KEYS])
+        layout = canvas_layout(g)
+        self.encode = FrameEncode(qt, layout, device)
+        self.step = FrameStep(qt, layout, device)
+        self.device = self.step.device
+        self._origins = [origins_for(p.h, p.w, self.device) for p in self.step.layout]
+        # the reconstructed previous frame (Y 0, U and V 128 before the
+        # first), and the canvas the next frame is reconstructed into
+        self.prev = torch.zeros((g.chh, g.cw), dtype=torch.uint8, device=self.device)
+        self.prev[g.ly0:, :2 * g.lcw] = 128
+        self.back = torch.empty_like(self.prev)
+
+    def check(self, sources, coeffs, motion) -> None:
+        """Raise ValueError unless the buffers of a P-frame (and so of an
+        I-frame) fit both kernels."""
+        self.encode.check(sources, motion, INTER_Q, self.prev, coeffs)
+        self.step.check(coeffs, motion, INTER_Q, self.prev, self.back)
+
+    def planes(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Views of the padded (Y, U, V) planes of the reconstructed previous
+        frame."""
+        return canvas_planes(self.g, self.prev)
+
+    def search(self, sources, motion) -> None:
+        """The motion search of each plane against the previous
+        reconstruction: the winners' vectors and the coded flags (best SSD
+        above min_err, in float32) into `motion`."""
+        mvy, mvx, hc = motion
+        for p, src, ref, (by, bx) in zip(self.step.layout, sources, self.planes(),
+                                         self._origins):
+            sl = slice(p.first, p.first + p.blocks)
+            mx, my, err, _ = motion_search(plane_to_blocks(src), ref, by, bx)
+            mvx[sl], mvy[sl] = mx, my
+            hc[sl] = err.to(torch.float32) > self.min_err
+
+    def transform(self, sources, motion, coeffs) -> None:
+        """K6: the frame's coefficients into `coeffs`; motion None for an
+        I-frame."""
+        self.encode.launch(sources, motion, INTRA_Q if motion is None else INTER_Q,
+                           self.prev, coeffs)
+
+    def reconstruct(self, coeffs, motion) -> None:
+        """The in-loop frame step: what a decoder makes of `coeffs` becomes
+        the previous frame."""
+        self.step.launch(coeffs, motion, INTRA_Q if motion is None else INTER_Q,
+                         self.prev, self.back)
+        self.prev, self.back = self.back, self.prev
+
+    def iframe(self, sources, coeffs) -> None:
+        self.transform(sources, None, coeffs)
+        self.reconstruct(coeffs, None)
+
+    def pframe(self, sources, coeffs, motion) -> None:
+        self.search(sources, motion)
+        self.transform(sources, motion, coeffs)
+        self.reconstruct(coeffs, motion)
 
 
 def plane_mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,14 @@
 """The streaming PFV Encoder on one device (counterpart of pfv_tpu/enc.py).
 
-Per frame, each padded plane is encoded on the device (motion search for
-P-frames, then kernel K6, forward DCT + quantization) and reconstructed in
-the loop by the frame step, one launch per plane, exactly as a decoder
-will; the dense coefficients come
-back to the host, where the shared C++ runtime entropy-codes the packet.
-The reconstructed previous frame stays on the device between frames, in two
-sets of planes that swap (the frame step never writes over the plane it
-reads). The
+Per frame, the three padded planes go to the device and through a
+`device.FrameEncoder`: for a P-frame the motion search of each plane, then
+one launch of kernel K6 (the frame-encode step: forward DCT + quantization
+of Y, U and V, prediction windows read from the previous reconstruction)
+and one launch of the frame step, which reconstructs the frame in the loop
+exactly as a decoder will. The dense coefficients come back to the host,
+where the shared C++ runtime entropy-codes the packet. The reconstructed
+previous frame stays on the device between frames, in two fused canvases
+that swap (the frame step never writes over the canvas it reads). The
 bytes equal the JAX package's Encoder's.
 
 Quality is inverted (quirk Q4): 0 is the finest, 10 the coarsest.
@@ -22,9 +23,8 @@ import numpy as np
 import torch
 
 from pfv_torch import runtime
-from pfv_torch.device import (iframe_encode_plane, origins_for, pad_plane_host,
-                              pframe_encode_plane, plane_mse, plane_step)
-from pfv_torch.frame import VideoFrame, pad16
+from pfv_torch.device import INTER_Q, INTRA_Q, FrameEncoder, pad_plane_host, plane_mse
+from pfv_torch.frame import VideoFrame, geometry
 from pfv_torch.ops.pframe import skip_threshold
 from pfv_torch.ops.quant import derive_q_tables
 
@@ -47,7 +47,7 @@ class Encoder:
     """Streaming PFV encoder writing to `writer`, encoding on `device`.
 
     Writes the container header on construction. `num_threads` is accepted
-    for API parity and ignored: each plane is one batch of kernel launches.
+    for API parity and ignored: a frame is two kernel launches.
     """
 
     def __init__(self, writer: BinaryIO, width: int, height: int, framerate: int,
@@ -68,24 +68,15 @@ class Encoder:
         self.collect_psnr = False
         self.stats: list[dict] = []
 
-        self._min_err = skip_threshold(quality)
         self._qt_host = derive_q_tables(quality)
-        self._qt = {k: torch.from_numpy(v).to(self.device)
-                    for k, v in self._qt_host.items()}
-
-        ly, lc = (pad16(height), pad16(width)), (pad16(height // 2), pad16(width // 2))
-        self._shapes = {"y": ly, "u": lc, "v": lc}
+        g = geometry(width, height)
+        self._shapes = {"y": (g.ly0, g.lyw), "u": (g.lc0, g.lcw), "v": (g.lc0, g.lcw)}
         self._clear = {"y": 0, "u": 128, "v": 128}
-        oy, oc = origins_for(*ly, self.device), origins_for(*lc, self.device)
-        self._origins = {"y": oy, "u": oc, "v": oc}
-        # the in-loop frame step of each plane shape and q-table
-        self._steps = {qk: plane_step(self._qt_host[qk], *(ly if qk[-1] == "l" else lc),
-                                      self.device) for qk in self._qt_host}
-        # the reconstructed previous frame (Y 0, U and V 128 before the
-        # first), and the planes the next frame is reconstructed into
-        self._prev = {k: torch.full(self._shapes[k], self._clear[k], dtype=torch.uint8,
-                                    device=self.device) for k in PLANES}
-        self._back = {k: torch.empty_like(p) for k, p in self._prev.items()}
+        self._frames = FrameEncoder(g, self._qt_host, skip_threshold(quality), self.device)
+        # a frame's coefficients and block headers (mvy, mvx, has_coeff)
+        self._coeffs = torch.empty((g.nb, 256), dtype=torch.int16, device=self.device)
+        headers = torch.zeros((3, g.nb), dtype=torch.int8, device=self.device)
+        self._motion = (headers[0], headers[1], headers[2].view(torch.uint8))
 
         writer.write(container_header(width, height, framerate, self._qt_host))
 
@@ -93,15 +84,15 @@ class Encoder:
         """The reconstructed previous frame as padded (Y, U, V) u8 planes on
         the device: what a decoder shows for the last frame encoded, and
         what the next P-frame is predicted from."""
-        return tuple(self._prev[k] for k in PLANES)
+        return self._frames.planes()
 
     def _write_packet(self, ptype: int, payload: bytes) -> None:
         self._writer.write(struct.pack("<BI", ptype, len(payload)))
         self._writer.write(payload)
 
     def _sources(self, frame: VideoFrame):
-        """The frame's planes, padded, on the device; raises ValueError on a
-        frame of another size or a finished encoder."""
+        """The frame's (Y, U, V) planes, padded, on the device; raises
+        ValueError on a frame of another size or a finished encoder."""
         if self._finished:
             raise ValueError("the encoder is finished")
         h, w = self.height, self.width
@@ -112,51 +103,38 @@ class Encoder:
             raise ValueError(f"frame {frame.width}x{frame.height} with planes "
                              f"{[np.shape(planes[k]) for k in PLANES]} does not fit "
                              f"the encoder's {w}x{h}")
-        return {k: pad_plane_host(np.asarray(planes[k]), *self._shapes[k],
-                                  self._clear[k], self.device) for k in PLANES}
-
-    def _swap(self) -> None:
-        self._prev, self._back = self._back, self._prev
+        src = [pad_plane_host(np.asarray(planes[k]), *self._shapes[k], self._clear[k],
+                              self.device) for k in PLANES]
+        self._frames.check(src, self._coeffs, self._motion)
+        return src
 
     def _psnr(self, src: torch.Tensor) -> float | None:
         if not self.collect_psnr:
             return None
         h, w = self.height, self.width
-        mse = float(plane_mse(self._prev["y"][:h, :w], src[:h, :w]))
+        mse = float(plane_mse(self._frames.planes()[0][:h, :w], src[:h, :w]))
         return 10.0 * float(np.log10(255.0**2 / max(mse, 1e-9)))
 
     def encode_iframe(self, frame: VideoFrame) -> None:
         """Intra-encode a frame, q-table indices (0, 1, 1)."""
         src = self._sources(frame)
-        coeffs = []
-        for k, qk in zip(PLANES, ("intra_l", "intra_c", "intra_c")):
-            c, _ = iframe_encode_plane(src[k], self._qt[qk], *self._origins[k],
-                                       self._back[k], self._steps[qk])
-            coeffs.append(c)
-        self._swap()
-        payload = runtime.encode_iframe_payload(torch.cat(coeffs).cpu().numpy(),
-                                                (0, 1, 1))
+        self._frames.iframe(src, self._coeffs)
+        payload = runtime.encode_iframe_payload(self._coeffs.cpu().numpy(), INTRA_Q)
         self._write_packet(1, payload)
         self.stats.append({"type": "I", "payload_bytes": len(payload),
-                           "skip_pct": 0.0, "psnr_y": self._psnr(src["y"])})
+                           "skip_pct": 0.0, "psnr_y": self._psnr(src[0])})
 
     def encode_pframe(self, frame: VideoFrame) -> None:
         """Inter-encode a frame against the previous reconstruction, q-table
-        indices (2, 3, 3). All planes are encoded before it is replaced."""
+        indices (2, 3, 3)."""
         src = self._sources(frame)
-        parts = []
-        for k, qk in zip(PLANES, ("inter_l", "inter_c", "inter_c")):
-            parts.append(pframe_encode_plane(src[k], self._prev[k], self._qt[qk],
-                                             self._min_err, *self._origins[k],
-                                             self._back[k], self._steps[qk])[:4])
-        self._swap()
-        coeffs, mvx, mvy, hc = (torch.cat(p).cpu().numpy() for p in zip(*parts))
-        payload = runtime.encode_pframe_payload(coeffs, mvx, mvy, hc.astype(np.uint8),
-                                                (2, 3, 3))
+        self._frames.pframe(src, self._coeffs, self._motion)
+        coeffs, mvy, mvx, hc = (t.cpu().numpy() for t in (self._coeffs, *self._motion))
+        payload = runtime.encode_pframe_payload(coeffs, mvx, mvy, hc, INTER_Q)
         self._write_packet(2, payload)
         self.stats.append({"type": "P", "payload_bytes": len(payload),
-                           "skip_pct": round(100.0 * float((~hc).mean()), 2),
-                           "psnr_y": self._psnr(src["y"])})
+                           "skip_pct": round(100.0 * float((hc == 0).mean()), 2),
+                           "psnr_y": self._psnr(src[0])})
 
     def encode_dropframe(self) -> None:
         """A zero-length I-frame packet (quirk Q8). The previous frame is

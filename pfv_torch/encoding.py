@@ -1,12 +1,12 @@
 """Whole-clip encode: every frame on the device, one compaction, one fetch,
 then the host mux (counterpart of pfv_tpu/encoding.py `encode_video`).
 
-The frames go to the device in one upload. Each frame is encoded plane by
-plane as the streaming Encoder does (motion search, K6, the in-loop frame
-step), and its coefficients, zeroed in skipped blocks, land in one
-(F, nb, 256) int16 buffer. One `torch.nonzero` compacts the clip (the JAX
-package needs a counting pass and a guessed cap for this: XLA has no
-data-dependent shapes), one copy brings the nonzeros and the block headers
+The frames go to the device in one upload. Each frame is encoded as the
+streaming Encoder does, through a `device.FrameEncoder` (motion search, one
+launch of K6, one of the in-loop frame step); K6 writes its coefficients,
+zeros in skipped blocks, straight into one (F, nb, 256) int16 buffer. One
+`torch.nonzero` compacts the clip (the JAX package needs a counting pass
+and a guessed cap for this: XLA has no data-dependent shapes), one copy brings the nonzeros and the block headers
 to the host, and the shared C++ runtime entropy-codes each frame from its
 nonzeros. The bytes equal the streaming Encoder's and the JAX package's.
 """
@@ -21,8 +21,7 @@ import numpy as np
 import torch
 
 from pfv_torch import runtime
-from pfv_torch.device import (iframe_encode_plane, origins_for, pframe_encode_plane,
-                              plane_step)
+from pfv_torch.device import INTER_Q, INTRA_Q, FrameEncoder
 from pfv_torch.enc import container_header
 from pfv_torch.frame import geometry
 from pfv_torch.ops.pframe import skip_threshold
@@ -71,21 +70,14 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
                          f"{v.shape} for luma {y.shape}")
     is_key = _keyframe_mask(keyframes, f)
     qt_host = derive_q_tables(quality)
-    min_err = skip_threshold(quality)
     dev = torch.device(device)
     g = geometry(w, h)
-    ly, lc = (g.ly0, g.lyw), (g.lc0, g.lcw)
-    shapes, clear = (ly, lc, lc), (0, 128, 128)
-    oy, oc = origins_for(*ly, dev), origins_for(*lc, dev)
-    origins = (oy, oc, oc)
-    steps = {qk: plane_step(t, *(ly if qk[-1] == "l" else lc), dev)
-             for qk, t in qt_host.items()}
-    bounds = (0, g.yb, g.yb + g.cb, g.nb)
+    shapes, clear = ((g.ly0, g.lyw), (g.lc0, g.lcw), (g.lc0, g.lcw)), (0, 128, 128)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     padded = [_pad_frames(p, *s, c) for p, s, c in zip((y, u, v), shapes, clear)]
     with stage("h2d upload"):
-        qt = {k: torch.from_numpy(t).to(dev) for k, t in qt_host.items()}
+        enc = FrameEncoder(g, qt_host, skip_threshold(quality), dev)
         src = [torch.from_numpy(p).to(dev) for p in padded]
         sync()
 
@@ -93,26 +85,14 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
         live = torch.empty((f, g.nb, 256), dtype=torch.int16, device=dev)
         mvx = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
         mvy = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
-        hc = torch.ones((f, g.nb), dtype=torch.bool, device=dev)
-        prev = [torch.full(s, c, dtype=torch.uint8, device=dev)
-                for s, c in zip(shapes, clear)]
-        back = [torch.empty_like(p) for p in prev]
+        hc = torch.ones((f, g.nb), dtype=torch.uint8, device=dev)
+        enc.check([p[0] for p in src], live[0], (mvy[0], mvx[0], hc[0]))
         for t in range(f):
-            for i in range(3):
-                sl = slice(bounds[i], bounds[i + 1])
-                if is_key[t]:
-                    qk = "intra_l" if i == 0 else "intra_c"
-                    c, _ = iframe_encode_plane(src[i][t], qt[qk], *origins[i], back[i],
-                                               steps[qk])
-                    live[t, sl] = c
-                else:
-                    qk = "inter_l" if i == 0 else "inter_c"
-                    c, mx, my, coded, _ = pframe_encode_plane(
-                        src[i][t], prev[i], qt[qk], min_err, *origins[i], back[i],
-                        steps[qk])
-                    torch.mul(c, coded[:, None], out=live[t, sl])
-                    mvx[t, sl], mvy[t, sl], hc[t, sl] = mx, my, coded
-            prev, back = back, prev
+            planes = [p[t] for p in src]
+            if is_key[t]:
+                enc.iframe(planes, live[t])
+            else:
+                enc.pframe(planes, live[t], (mvy[t], mvx[t], hc[t]))
         # frame-local flat indices, each frame's in ascending order
         flat = live.view(f, -1)
         frame_of, idx = torch.nonzero(flat, as_tuple=True)
@@ -132,11 +112,10 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
             lo, hi = ends[t] - counts[t], ends[t]
             if is_key[t]:
                 payload = runtime.encode_iframe_payload_sparse(
-                    idx[lo:hi], val[lo:hi], g.nb, (0, 1, 1))
+                    idx[lo:hi], val[lo:hi], g.nb, INTRA_Q)
             else:
                 payload = runtime.encode_pframe_payload_sparse(
-                    idx[lo:hi], val[lo:hi], mvx[t], mvy[t], hc[t].astype(np.uint8),
-                    (2, 3, 3))
+                    idx[lo:hi], val[lo:hi], mvx[t], mvy[t], hc[t], INTER_Q)
             out += [struct.pack("<BI", 1 if is_key[t] else 2, len(payload)), payload]
         out.append(struct.pack("<BI", 0, 0))
     return b"".join(out)

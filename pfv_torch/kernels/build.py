@@ -94,8 +94,9 @@ def lib() -> ctypes.CDLL:
             so.pfv_idct_blocks.restype = i
             so.pfv_mc_reconstruct.argtypes = [p, p, i, i, i] + [p] * 5 + [i, p, i, i, p]
             so.pfv_mc_reconstruct.restype = i
-            so.pfv_fdct_blocks.argtypes = [p] * 4 + [i, p]
-            so.pfv_fdct_blocks.restype = i
+            so.pfv_frame_encode.argtypes = ([p] * 3 + [ll] * 3 + [p] * 3 + [i, p, i, i, i,
+                                                                           p, ll, p, p, i, p])
+            so.pfv_frame_encode.restype = i
             so.pfv_frame_step.argtypes = [p] * 4 + [i, p, i, i, i, p, ll, p, ll, p, i, p]
             so.pfv_frame_step.restype = i
             _lib = so

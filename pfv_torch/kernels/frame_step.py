@@ -9,9 +9,10 @@ skipped win). It is built once per layout, the planes' places in a canvas
 (`PlaneAt`), and q-tables; a call takes a frame's (nb, 256) i16
 coefficients, its (mvy, mvx, has_coeff) header rows or None for an I-frame,
 one q-table index per plane, and the previous and output canvases (2-D u8,
-unit column stride, never overlapping). The streaming decoder passes the
-three planes of its fused canvases, one launch per frame; the encoder one
-plane of its own, one launch per plane.
+unit column stride, never overlapping). The streaming decoder and the
+encoders' in-loop reconstruction pass the three planes of their fused
+canvases, one launch per frame; the per-plane decode steps of `device.py`
+one plane of its own.
 
 A CPU tensor runs `frame_step_plain` (K5's and K7's plain versions plane by
 plane); a CUDA tensor launches the kernel or raises.
@@ -58,6 +59,20 @@ def plane_layout(h: int, w: int) -> tuple[PlaneAt]:
     return (PlaneAt(0, 0, 0, h, w),)
 
 
+def checked_layout(layout) -> tuple[PlaneAt, ...]:
+    """The layout as `PlaneAt`s; raises ValueError unless it is 1 to
+    MAX_PLANES planes of whole 16x16 blocks at 16-byte aligned columns."""
+    layout = tuple(PlaneAt(*p) for p in layout)
+    if not 1 <= len(layout) <= MAX_PLANES:
+        raise ValueError(f"a frame's kernels take 1 to {MAX_PLANES} planes, "
+                         f"got {len(layout)}")
+    for p in layout:
+        if p.h <= 0 or p.w <= 0 or p.h % 16 or p.w % 16 or min(p) < 0 or p.col % ALIGN:
+            raise ValueError(f"{p} is not a plane of whole 16x16 blocks at "
+                             "a 16-byte aligned column")
+    return layout
+
+
 def multipliers(qtables) -> np.ndarray:
     """(nq, 64) q-tables -> (nq, 64) int32 dequantization multipliers at the
     row-major position: mul[t][ZIGZAG[k]] = SCALE[k] * q_t[k] (quirk Q1)."""
@@ -86,15 +101,7 @@ class FrameStep:
 
     def __init__(self, qtables, layout, device):
         qt = np.ascontiguousarray(qtables, dtype=np.int32).reshape(-1, 64)
-        self.layout = tuple(PlaneAt(*p) for p in layout)
-        if not 1 <= len(self.layout) <= MAX_PLANES:
-            raise ValueError(f"a frame step takes 1 to {MAX_PLANES} planes, "
-                             f"got {len(self.layout)}")
-        for p in self.layout:
-            if p.h <= 0 or p.w <= 0 or p.h % 16 or p.w % 16 or min(p) < 0 \
-                    or p.col % ALIGN:
-                raise ValueError(f"{p} is not a plane of whole 16x16 blocks at "
-                                 "a 16-byte aligned column")
+        self.layout = checked_layout(layout)
         self.nq = qt.shape[0]
         self.qtables = torch.from_numpy(qt)  # the plain version's, on the host
         self.mul = torch.from_numpy(multipliers(qt)).to(device)

@@ -1,7 +1,10 @@
 """K2, canvas -> packed RGBA (csrc/rgba_kernel.cu), and its plain version.
 
 A CPU tensor goes to `canvas_rgba_plain`; a CUDA tensor launches the kernel
-or raises.
+or raises. The kernel takes any height, width and V column: it picks its
+vector path (8 pixels of two rows per thread) where width % 4 == 0,
+cw % 8 == 0, lc1 % 4 == 0 and the pointers are aligned, and goes pixel by
+pixel elsewhere.
 """
 
 from __future__ import annotations

@@ -86,6 +86,38 @@ def trunc_div(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return torch.div(n, d, rounding_mode="trunc")
 
 
+Q_MAX = 65535  # the largest divisor the format's u16 q-tables hold
+
+
+def reciprocals(q_table) -> np.ndarray:
+    """R = ceil(2^31 / q) as uint32, for divisors 1 <= q <= Q_MAX (host
+    values, any shape): what kernel K6 multiplies by instead of dividing
+    (`trunc_div_by_reciprocal`). Raises ValueError outside that range."""
+    q = np.asarray(q_table, dtype=np.int64)
+    if q.size and (q.min() < 1 or q.max() > Q_MAX):
+        raise ValueError(f"q-table entries must be in 1..{Q_MAX}, got "
+                         f"{int(q.min())}..{int(q.max())}")
+    return ((2**31 + q - 1) // q).astype(np.uint32)
+
+
+def trunc_div_by_reciprocal(n: torch.Tensor, recip: torch.Tensor) -> torch.Tensor:
+    """`trunc_div(n, q)` as kernel K6 computes it, for -32768 <= n <= 32767
+    (an int32 shifted right by 16) and recip = `reciprocals(q)` as int64:
+    sign(n) * ((2 |n| * R) >> 32), no division. n * R / 2^31 exceeds n / q
+    by less than 2^-16 < 1 / q, so the floor is that of |n| / q."""
+    mag = (2 * n.abs().to(torch.int64) * recip) >> 32
+    return (torch.sign(n) * mag).to(n.dtype)
+
+
+def _numerators(m: torch.Tensor, q_table: torch.Tensor):
+    """What `quantize` divides, in zigzag order: (m[idx] * SCALE[idx]) >> 16
+    and q[idx] as int32, idx = ZIGZAG_TABLE."""
+    idx = torch.from_numpy(ZIGZAG_TABLE).long().to(m.device)
+    scale = torch.from_numpy(DCT_SCALE_FACTOR).to(m.device)[idx]
+    n = (m[..., idx] * scale) >> 16
+    return n, torch.broadcast_to(q_table, m.shape)[..., idx].to(torch.int32)
+
+
 def quantize(m: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
     """Quantize row-major DCT coefficients (..., 64) i32 -> zigzag (..., 64) i16.
 
@@ -94,11 +126,15 @@ def quantize(m: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
     floors and the division truncates, two different roundings. q_table
     broadcasts against m.
     """
-    idx = torch.from_numpy(ZIGZAG_TABLE).long().to(m.device)
-    scale = torch.from_numpy(DCT_SCALE_FACTOR).to(m.device)[idx]
-    n = (m[..., idx] * scale) >> 16
-    d = torch.broadcast_to(q_table, m.shape)[..., idx].to(torch.int32)
-    return trunc_div(n, d).to(torch.int16)
+    return trunc_div(*_numerators(m, q_table)).to(torch.int16)
+
+
+def quantize_by_reciprocal(m: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
+    """`quantize` dividing as kernel K6 does, by `trunc_div_by_reciprocal`
+    (q_table entries in 1..Q_MAX): what the tests hold to `quantize`."""
+    n, d = _numerators(m, q_table)
+    recip = torch.from_numpy(reciprocals(d.cpu().numpy()).astype(np.int64)).to(m.device)
+    return trunc_div_by_reciprocal(n, recip).to(torch.int16)
 
 
 def derive_q_tables(quality: int) -> dict[str, np.ndarray]:

@@ -19,13 +19,14 @@ import torch
 
 from pfv_torch import dataloader as tdl
 from pfv_torch import runtime, synth
+from pfv_torch import Encoder, VideoFrame
 from pfv_torch.dec import Decoder, split_packets
 from pfv_torch.encoding import encode_video
 from pfv_torch.kernels.dense_step import (seq_frames_dense, seq_frames_dense_plain,
                                           step_frames_batched_plain, step_gops,
                                           step_gops_plain)
-from pfv_torch.frame import canvas_layout
-from pfv_torch.kernels.fdct import fdct_blocks, fdct_blocks_plain
+from pfv_torch.frame import canvas_layout, canvas_planes
+from pfv_torch.kernels.fdct import FrameEncode, fdct_blocks, fdct_blocks_plain
 from pfv_torch.kernels.frame_step import FrameStep
 from pfv_torch.kernels.idct import decode_blocks, decode_blocks_plain
 from pfv_torch.kernels.mc import mc_reconstruct, mc_reconstruct_plain
@@ -60,8 +61,12 @@ def test_step_kernel_matches_plain_and_reference(cuda, path):
         assert np.array_equal(p.cpu().numpy(), r)
 
 
-@pytest.mark.parametrize("w,h", [(1920, 1080), (136, 90)])
+@pytest.mark.parametrize("w,h", [(1920, 1080), (136, 90), (134, 90), (140, 89),
+                                 (131, 77), (8, 2), (6, 3)])
 def test_rgba_kernel_matches_plain_on_random_canvases(cuda, w, h):
+    """Widths with w % 8 == 0 (the vector path alone), w % 8 == 4 (its
+    one-by-one tail), w % 4 != 0 and odd (all one by one), odd heights (a
+    last row without a partner)."""
     g = tdl.geometry(w, h)
     canv = torch.from_numpy(np.random.default_rng(w).integers(
         0, 256, size=(2, g.chh, g.cw), dtype=np.uint8))
@@ -72,6 +77,20 @@ def test_rgba_kernel_matches_plain_on_random_canvases(cuda, w, h):
     assert torch.equal(got, canvas_rgba_plain(canv, h, w, g.ly0, g.lcw)
                        .view(torch.int32))
     assert (int(got[0, 0, 0]) >> 8) & 255 == 40
+
+
+@pytest.mark.parametrize("w,h,ly0,lc1", [(100, 90, 96, 70), (104, 51, 64, 53),
+                                         (96, 64, 64, 48)])
+def test_rgba_kernel_with_a_v_column_anywhere(cuda, w, h, ly0, lc1):
+    """V columns that are not 4-byte aligned (one by one) and one that is,
+    in canvases of a layout of their own, one of them sliced so that its
+    first byte is not 8-byte aligned."""
+    rng = np.random.default_rng(w + lc1)
+    canv = torch.from_numpy(rng.integers(0, 256, size=(4, 160, 208),
+                                         dtype=np.uint8)).to(cuda)
+    for c in (canv, canv.view(-1)[160 * 208 - 4:-4].view(3, 160, 208)):
+        got = canvas_rgba(c, h, w, ly0, lc1).view(torch.int32)
+        assert torch.equal(got, canvas_rgba_plain(c, h, w, ly0, lc1).view(torch.int32))
 
 
 def test_kernels_raise_on_mixed_devices(cuda):
@@ -183,7 +202,7 @@ def test_frame_step_kernel_matches_plain(cuda, w, h, intra):
     want = host(coeffs.cpu(), None if intra else tuple(t.cpu() for t in motion), qidx,
                 prev.cpu(), torch.full_like(prev.cpu(), 7))
     assert torch.equal(out.cpu(), want)
-    # the one-plane form, as the encoder calls it, on V's plane
+    # the one-plane form, as the per-plane decode steps call it, on V's plane
     first, row, col, ph, pw = canvas_layout(g)[2]
     one = FrameStep(qt[1:2], [(0, 0, 0, ph, pw)], cuda)
     sl = slice(first, first + (ph // 16) * (pw // 16))
@@ -236,17 +255,112 @@ def test_fdct_kernel_matches_plain(cuda, n, delta):
     assert torch.equal(got, fdct_blocks_plain(blocks, q, win))
 
 
+def _frame_encode_inputs(g, seed, intra, cuda):
+    """Random frame-encode inputs of geometry g on the card: the three
+    padded source planes, vectors of the int8 field's whole range (windows
+    leave every plane side) and coded flags or None, (4, 64) q-tables over
+    the whole range the kernel takes, the previous canvas."""
+    rng = np.random.default_rng(seed)
+    shapes = ((g.ly0, g.lyw), (g.lc0, g.lcw), (g.lc0, g.lcw))
+    prev = rng.integers(0, 256, size=(g.chh, g.cw), dtype=np.uint8)
+    src = [rng.integers(0, 256, size=s, dtype=np.uint8) for s in shapes]
+    src[0][:16, :16] = 255 * (np.indices((16, 16)).sum(0) % 2)  # checker: extreme AC
+    prev[:16, :16] = 255 - src[0][:16, :16]  # and residuals at both clamps
+    for s, p in zip(src[1:], tdl.slice_yuv(g, prev)[1:]):  # chroma close to prev
+        s[:p.shape[0], :p.shape[1]] = np.clip(
+            p.astype(np.int32) + rng.integers(-9, 10, size=p.shape), 0, 255)
+    motion = None if intra else tuple(
+        torch.from_numpy(a).to(cuda) for a in (
+            rng.integers(-128, 128, g.nb).astype(np.int8),
+            rng.integers(-128, 128, g.nb).astype(np.int8),
+            (rng.random(g.nb) < 0.5).astype(np.uint8)))
+    if motion is not None:
+        motion[0][0] = motion[1][0] = 0
+        motion[2][0] = 1
+    qt = rng.integers(1, 300, size=(4, 64)).astype(np.int32)
+    qt[3] = rng.choice([1, 2, 3, 255, 256, 257, 32767, 32768, 65535], size=64)
+    return ([torch.from_numpy(s).to(cuda) for s in src], motion, qt,
+            torch.from_numpy(prev).to(cuda))
+
+
+@pytest.mark.parametrize("intra", [True, False], ids=["I", "P"])
+@pytest.mark.parametrize("w,h", [(1920, 1080), (136, 90), (48, 16), (4112, 32)])
+def test_frame_encode_kernel_matches_plain(cuda, w, h, intra):
+    g = tdl.geometry(w, h)
+    src, motion, qt, prev = _frame_encode_inputs(g, w + h, intra, cuda)
+    step = FrameEncode(qt, canvas_layout(g), cuda)
+    qidx = (2, 0, 3)  # U and V on different tables
+    out = torch.full((g.nb, 256), 7, dtype=torch.int16, device=cuda)
+    before = FrameEncode.launches
+    step(src, motion, qidx, prev, out)
+    assert FrameEncode.launches - before == 1
+    host = FrameEncode(qt, canvas_layout(g), "cpu")
+    want = host([s.cpu() for s in src], None if intra else tuple(t.cpu() for t in motion),
+                qidx, prev.cpu(), torch.full((g.nb, 256), 7, dtype=torch.int16))
+    assert torch.equal(out.cpu(), want)
+    if not intra:  # skipped blocks are zeros, coded ones are not all zero
+        coded = motion[2].cpu() != 0
+        assert not want[~coded].any() and want[coded].any()
+    # the source planes as views of one canvas, as strided as the previous one
+    canvas = torch.empty((g.chh, g.cw), dtype=torch.uint8, device=cuda)
+    views = canvas_planes(g, canvas)
+    for view, s in zip(views, src):
+        view.copy_(s)
+    again = torch.full_like(out, 7)
+    step(views, motion, qidx, prev, again)
+    assert torch.equal(again, out)
+
+
+def test_frame_encode_raises_on_mixed_devices(cuda):
+    g = tdl.geometry(64, 48)
+    src, motion, qt, prev = _frame_encode_inputs(g, 1, False, cuda)
+    step = FrameEncode(qt, canvas_layout(g), cuda)
+    out = torch.empty((g.nb, 256), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        step([src[0].cpu(), *src[1:]], motion, (0, 1, 1), prev, out)
+    with pytest.raises(ValueError):
+        step(src, motion, (0, 1, 1), prev.cpu(), out)
+    with pytest.raises(ValueError):
+        step(src, motion, (0, 1, 1), prev, out.cpu())
+
+
+def _clip(w, h, f):
+    frames = [synth.synth_yuv_frame(t, w, h) for t in range(f)]
+    return tuple(np.stack([p[i] for p in frames]) for i in range(3))
+
+
+def _encode_counters():
+    return (FrameEncode, FrameStep, fdct_blocks, decode_blocks, mc_reconstruct,
+            step_frames, canvas_rgba)
+
+
 def test_encode_video_on_the_card_equals_the_cpu(cuda):
     w, h, f = 96, 64, 9
-    frames = [synth.synth_yuv_frame(t, w, h) for t in range(f)]
-    y, u, v = (np.stack([p[i] for p in frames]) for i in range(3))
-    before = (fdct_blocks.launches, FrameStep.launches, decode_blocks.launches,
-              mc_reconstruct.launches)
+    y, u, v = _clip(w, h, f)
+    before = [fn.launches for fn in _encode_counters()]
     got = encode_video(y, u, v, 30, 3, 4, device="cuda")
-    assert (fdct_blocks.launches - before[0], FrameStep.launches - before[1],
-            decode_blocks.launches - before[2], mc_reconstruct.launches - before[3]) \
-        == (3 * f, 3 * f, 0, 0)
+    # K6 and the in-loop frame step once per frame, nothing else
+    assert [fn.launches - b for fn, b in zip(_encode_counters(), before)] \
+        == [f, f, 0, 0, 0, 0, 0]
     assert got == encode_video(y, u, v, 30, 3, 4, device="cpu")
+
+
+def test_encoder_on_the_card_equals_the_cpu(cuda):
+    w, h, f = 96, 64, 9
+    y, u, v = _clip(w, h, f)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        before = [fn.launches for fn in _encode_counters()]
+        buf = io.BytesIO()
+        with Encoder(buf, w, h, 30, 3, device=device) as enc:
+            for t in range(f):
+                frame = VideoFrame(w, h, y[t], u[t], v[t])
+                (enc.encode_iframe if t % 4 == 0 else enc.encode_pframe)(frame)
+        outs[device] = buf.getvalue()
+        n = f if device == "cuda" else 0
+        assert [fn.launches - b for fn, b in zip(_encode_counters(), before)] \
+            == [n, n, 0, 0, 0, 0, 0]
+    assert outs["cuda"] == outs["cpu"] == encode_video(y, u, v, 30, 3, 4, device="cuda")
 
 
 def test_fdct_kernel_raises_on_mixed_devices(cuda):

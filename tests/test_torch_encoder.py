@@ -1,6 +1,8 @@
 """pfv_torch's encoder with device="cpu" (the kernels' plain versions)
 against the JAX package: the motion search and the plane encode steps
-against their jnp counterparts, and the streaming `Encoder` and
+against their jnp counterparts, the per-frame `FrameEncoder` of the
+encoders (fused canvases, one frame-encode step and one frame step per
+frame) against those plane steps, and the streaming `Encoder` and
 `encode_video` byte for byte against pfv_tpu.Encoder,
 pfv_tpu.encoding.encode_video and the numpy oracle encoder, on the 96x64
 9-frame clip of tests/test_encoding.py. The output decodes, through the
@@ -19,6 +21,7 @@ from oracle import pfv_oracle as oracle
 import pfv_torch
 from pfv_torch import device as tdevice
 from pfv_torch import synth
+from pfv_torch.frame import canvas_layout, geometry
 from pfv_torch.ops import blocks as tblocks
 from pfv_torch.ops import motion as tmotion
 from pfv_torch.ops import pframe as tpframe
@@ -139,6 +142,48 @@ def test_plane_encode_steps_match_jax(pan, quality):
     for g, w_ in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w_))
     assert got[3].dtype == torch.bool and got[1].dtype == torch.int8
+
+
+@pytest.mark.parametrize("quality", [0, 3, 10])
+def test_frame_encoder_matches_the_plane_encode_steps(pan, quality):
+    """An I-frame and a P-frame through the encoders' FrameEncoder: per
+    plane the coefficients (zeros where a block is skipped), vectors, flags
+    and reconstruction of `iframe_encode_plane` / `pframe_encode_plane`,
+    which `test_plane_encode_steps_match_jax` holds to the JAX package."""
+    qt = derive_q_tables(quality)
+    min_err = tpframe.skip_threshold(quality)
+    g = geometry(W, H)
+    enc = tdevice.FrameEncoder(g, qt, min_err, "cpu")
+    y0, u0, v0 = enc.planes()
+    assert not y0.any() and (u0 == 128).all() and (v0 == 128).all()
+    src = [[torch.from_numpy(_padded(pan[i][t], 0 if i == 0 else 128)) for i in range(3)]
+           for t in (0, 1)]
+    coeffs = torch.full((g.nb, 256), 7, dtype=torch.int16)
+    headers = torch.zeros((3, g.nb), dtype=torch.int8)
+    motion = (headers[0], headers[1], headers[2].view(torch.uint8))
+    enc.check(src[0], coeffs, motion)
+    enc.iframe(src[0], coeffs)
+    recon = []
+    for (first, *_), plane, got, qk in zip(canvas_layout(g), src[0], enc.planes(),
+                                           ("intra_l", "intra_c", "intra_c")):
+        by, bx = (torch.from_numpy(o) for o in tblocks.block_origins(*plane.shape))
+        c, r = tdevice.iframe_encode_plane(plane, torch.from_numpy(qt[qk]), by, bx)
+        assert torch.equal(coeffs[first:first + c.shape[0]], c) and torch.equal(got, r)
+        recon.append(r)
+    enc.pframe(src[1], coeffs, motion)
+    skipped = 0
+    for (first, *_), plane, ref, got, qk in zip(canvas_layout(g), src[1], recon,
+                                                enc.planes(),
+                                                ("inter_l", "inter_c", "inter_c")):
+        by, bx = (torch.from_numpy(o) for o in tblocks.block_origins(*plane.shape))
+        c, mx, my, coded, r = tdevice.pframe_encode_plane(
+            plane, ref, torch.from_numpy(qt[qk]), min_err, by, bx)
+        sl = slice(first, first + c.shape[0])
+        assert torch.equal(coeffs[sl], c * coded[:, None])
+        assert torch.equal(motion[0][sl], my) and torch.equal(motion[1][sl], mx)
+        assert torch.equal(motion[2][sl], coded.to(torch.uint8)) and torch.equal(got, r)
+        skipped += int((~coded).sum())
+    assert skipped > 0 or quality == 0
 
 
 @pytest.mark.parametrize("quality,interval", [(3, 4), (0, 3), (8, 9)])

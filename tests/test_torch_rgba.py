@@ -60,8 +60,11 @@ def test_rgba_plain_matches_pallas(w, h):
     assert canvas_rgba.launches == before
 
 
-@pytest.mark.parametrize("w,h", [(128, 96), (640, 96), (136, 90)])
+@pytest.mark.parametrize("w,h", [(128, 96), (640, 96), (136, 90), (134, 90), (132, 90),
+                                 (136, 89), (131, 77)])
 def test_rgba_plain_matches_unfused_f32(w, h):
+    """Also where the kernel leaves its vector path: w % 4 != 0, w % 8 == 4,
+    an odd height, an odd width."""
     g = geometry(w, h)
     canv = np.random.default_rng(w + h).integers(
         0, 256, size=(3, g.chh, g.cw), dtype=np.uint8)
@@ -69,6 +72,17 @@ def test_rgba_plain_matches_unfused_f32(w, h):
     got = _words(canvas_rgba_plain(torch.from_numpy(canv), h, w, g.ly0, g.lcw))
     assert np.array_equal(got, _rgba_np(canv, h, w, g.ly0, g.lcw))
     assert (got[0, 0, 0] >> 8) & 255 == 40
+
+
+@pytest.mark.parametrize("w,h,ly0,lc1", [(100, 90, 96, 70), (131, 77, 96, 67),
+                                         (96, 64, 64, 48)])
+def test_rgba_plain_with_a_v_column_anywhere(w, h, ly0, lc1):
+    """Canvases of a layout of their own: V columns that are not 4-byte
+    aligned, and one that is."""
+    canv = np.random.default_rng(w + lc1).integers(0, 256, size=(2, 160, 208),
+                                                   dtype=np.uint8)
+    got = _words(canvas_rgba(torch.from_numpy(canv), h, w, ly0, lc1))
+    assert np.array_equal(got, _rgba_np(canv, h, w, ly0, lc1))
 
 
 def test_rgba_rejects_what_the_kernel_cannot_take():
