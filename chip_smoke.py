@@ -92,8 +92,32 @@ from the repository root. Phases, one line each:
      profiler device time), each layer of the 8K decode (host demux, H2D,
      tables, densify, K3, K2) and the whole calls, and the per-frame
      fallback on the same 8K stream.
-Each main-path phase (3, 8, 9, 12, 13, 16) sets the launch counts to 0 just
-before it and reads them just after. Under programmatic dependent launch
+ 18. drive VideoDataLoader over the three corpora twice over, mixed (1080p,
+     512x384, 1080p pan, ...): every clip equal to decode_video_rgb of the
+     same bytes, K1 once per frame and K2 once per clip; then the loader's
+     and a plain decode_video_rgb loop's rates over the same list (host
+     clock, synchronized, median of 3), with the worker's read, demux and
+     upload and the consumer's wait and decode per clip;
+ 19. build a 48-frame 8K UHD stream (phase 16's packets twice), which the
+     gate F*64*row_span < 2^31 sends frame by frame, and drive
+     decode_video_rgb_chunks with a cap of 24: two chunks, each route
+     "dense", K3 once per frame, every pixel equal to K2's plain version of
+     the reference planes; its time beside the per-frame fallback on the
+     same bytes, and its peak device memory beside a 24-frame decode's;
+ 20. drive decode_stream_batch of four 1080p streams and decode_video_gops
+     of the 1080p corpus over the list ["cuda:0", "cuda:0"] (the one card
+     twice: two threads, two streams), exact against the reference,
+     mean_luma against numpy, K1 once per frame; the batch's time on one
+     list entry and on two;
+ 21. drive encode_video_gops of the 512x384 source over the same list:
+     sha256 equal to the committed corpus, K6 and the frame step once per
+     frame; its time beside encode_video's;
+ 22. drive the command-line tool in-process (info, verify, bench --runs 3
+     on the 512x384 corpus; encode --synth 8, then decode to a temporary
+     .npy held to the reference decoder).
+Each main-path phase (3, 8, 9, 12, 13, 16, 18-22) sets the launch counts to
+0 just before it and reads them just after; the kernels' JSON line gives
+each kernel's launches summed over those phases. Under programmatic dependent launch
 the profiler's time of a grid holds its wait for the previous grid, so a
 clip's device time can exceed its CUDA-event time. The kernels' JSON line
 gives each kernel's time beside its bound: the larger of the bytes it must
@@ -114,6 +138,7 @@ printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
@@ -571,6 +596,63 @@ def encode_layers(planes, w, h, dev):
     out.append(struct.pack("<BI", 0, 0))
     lap("host mux")
     return b"".join(out), ms
+
+
+def ref_rgba_plain(g, planes, dev):
+    """K2's plain version of the reference planes -> (F, H, W) packed RGBA."""
+    from pfv_torch.kernels.rgba import canvas_rgba_plain
+
+    return canvas_rgba_plain(ref_canvases(g, planes, dev), g.height, g.width, g.ly0, g.lcw)
+
+
+def rgb_exact(g, rgb, planes, dev, step: int = 4) -> bool:
+    """Whether (F, H, W, 3) u8 RGB on the card equals K2's plain version of
+    the reference planes, `step` frames at a time."""
+    from pfv_torch.dataloader import rgba_view
+
+    ok = rgb.shape[0] == planes[0].shape[0]
+    for f0 in range(0, rgb.shape[0], step):
+        want = rgba_view(ref_rgba_plain(g, [r[f0:f0 + step] for r in planes], dev))
+        ok = ok and torch.equal(rgb[f0:f0 + step], want[..., :3])
+    return ok
+
+
+class StageLog:
+    """A timer for `VideoDataLoader(timer=...)` that keeps every stage's
+    duration, ms, in the order the stages ended."""
+
+    def __init__(self):
+        self.ms = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.ms.setdefault(name, []).append(1e3 * (time.perf_counter() - t))
+
+
+def drain(clips) -> int:
+    """Iterate `clips` (RGB tensors on the card, or (start, RGB) pairs),
+    dropping each as the next arrives; wait for the card -> frames seen."""
+    frames = 0
+    for clip in clips:
+        frames += (clip[1] if isinstance(clip, tuple) else clip).shape[0]
+        del clip
+    torch.cuda.synchronize()
+    return frames
+
+
+def peak_bytes(fn) -> int:
+    """torch.cuda.max_memory_allocated over one call of fn, less what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
 
 
 def main() -> int:
@@ -1356,43 +1438,251 @@ def main() -> int:
           + f" ({card})")
     del k3_in, args8, canv8, d8, v8
 
+
+    # phase 18: the loader, demux and upload of clip i+1 beside the kernels
+    # of clip i
+    from pfv_torch import VideoDataLoader
+
+    order = ["1080p", "512x384", "1080p_pan"] * 2
+    clips = [datas[k] for k in order]
+    whole = {k: dl.decode_video_rgb(d, device="cuda") for k, d in datas.items()}
+    zero_counts()
+    loaded = list(VideoDataLoader(clips, device="cuda"))
+    ld_launches = read_counts()
+    exact = len(loaded) == len(clips) and all(
+        torch.equal(got, whole[k]) for got, k in zip(loaded, order))
+    ld_frames = sum(refs[k][0].shape[0] for k in order)
+    print(f"phase 18 VideoDataLoader over {len(clips)} clips ({', '.join(order)}; "
+          f"{ld_frames} frames): every clip equal to decode_video_rgb of its bytes: {exact}; "
+          f"launches {ld_launches}")
+    check(exact, "a clip of the loader differs from decode_video_rgb")
+    check(ld_launches["K1"] == ld_frames, "the loader did not launch K1 once per frame")
+    check(ld_launches["K2"] == len(clips), "the loader did not launch K2 once per clip")
+    check(all(v == 0 for k, v in ld_launches.items() if k not in ("K1", "K2")),
+          "the loader launched a kernel of another route")
+    del loaded, whole
+    ld_ms, loop_ms, logs = [], [], []
+    for _ in range(ENC_REPS):
+        logs.append(StageLog())
+        ld_ms.append(host_ms(lambda: drain(VideoDataLoader(clips, device="cuda",
+                                                           timer=logs[-1]))))
+        loop_ms.append(host_ms(lambda: drain(dl.decode_video_rgb(d, device="cuda")
+                                             for d in clips)))
+    ld, lp = statistics.median(ld_ms), statistics.median(loop_ms)
+    # per stage, over the clips of all passes (the wait for the end of the
+    # list, the last of each pass, left out)
+    per_clip = {k: [v for log in logs for v in log.ms[k][:len(clips)]] for k in logs[0].ms}
+    print(f"phase 18 rates over the {len(clips)} clips, median of {ENC_REPS}: loader "
+          f"{ld:.3f} ms ({', '.join(f'{v:.3f}' for v in ld_ms)}), "
+          f"{1e3 * len(clips) / ld:.3f} clips/s, {1e3 * ld_frames / ld:.2f} frames/s; plain "
+          f"loop of decode_video_rgb {lp:.3f} ms ({', '.join(f'{v:.3f}' for v in loop_ms)}), "
+          f"{1e3 * len(clips) / lp:.3f} clips/s, {1e3 * ld_frames / lp:.2f} frames/s; loader / "
+          f"loop {ld / lp:.4f}; per clip, ms, median (largest) of {len(per_clip['demux'])}: "
+          "worker " + ", ".join(
+              f"{k} {statistics.median(per_clip[k]):.3f} ({max(per_clip[k]):.3f})"
+              for k in ("read", "demux", "upload"))
+          + " (upload: packed into pinned memory, copy and tables enqueued), consumer "
+          + ", ".join(f"{k} {statistics.median(per_clip[k]):.3f} ({max(per_clip[k]):.3f})"
+                      for k in ("wait", "decode"))
+          + f" (decode: K1 and K2 enqueued) ({card})")
+
+    # phase 19: a clip too long for the dense route, in chunks
+    uinfo, upackets = split_packets(uhd)
+    uhd2 = synth.container(*UHD[:2], uinfo["qtables"], list(upackets) * 2)
+    ref2 = [np.concatenate([r, r]) for r in d_refs["8K UHD"]]
+    route2 = dl.choose_route(uhd2)
+    kinds = [dl.choose_route(c).kind for _, c in dl.chunk_streams(uhd2, UHD[2])]
+    print(f"phase 19 8K UHD stream of {2 * UHD[2]} frames ({len(uhd2)} bytes, the "
+          f"{UHD[2]}-frame stream's packets twice): whole, route '{route2.kind}' (gate "
+          f"'{route2.gate}'); in chunks of at most {UHD[2]} frames, routes {kinds}")
+    check((route2.kind, route2.gate) == ("frames", "F*64*row_span < 2^31"),
+          "the long 8K stream did not fail the dense route's length gate")
+    check(kinds == ["dense", "dense"], "the 8K chunks did not take the dense route")
+    g8 = route2.g
+    zero_counts()
+    starts, exact = [], True
+    for start, rgb in dl.decode_video_rgb_chunks(uhd2, UHD[2], device="cuda"):
+        starts.append((start, rgb.shape[0]))
+        exact &= rgb_exact(g8, rgb, [r[start:start + rgb.shape[0]] for r in ref2], dev)
+        del rgb
+    ch_launches = read_counts()  # the comparisons launch no counted kernel
+    print(f"phase 19 decode_video_rgb_chunks: chunks (start, frames) {starts}, every "
+          f"pixel equal to plain K2 of the reference planes: {exact}; launches "
+          f"{ch_launches}")
+    check(exact and starts == [(0, UHD[2]), (UHD[2], UHD[2])],
+          "the chunked 8K decode differs from the reference")
+    check(ch_launches["K3"] == 2 * UHD[2] and ch_launches["K2"] == 2,
+          "the chunks did not launch K3 once per frame and K2 once per chunk")
+    check(all(v == 0 for k, v in ch_launches.items() if k not in ("K2", "K3")),
+          "the chunks launched a kernel of another route")
+    peak2 = peak_bytes(lambda: drain(dl.decode_video_rgb_chunks(uhd2, UHD[2],
+                                                                 device="cuda")))
+    peak1 = peak_bytes(lambda: drain([dl.decode_video_rgb(uhd, device="cuda")]))
+    ch_ms = [host_ms(lambda: drain(dl.decode_video_rgb_chunks(uhd2, UHD[2], device="cuda")))
+             for _ in range(ENC_REPS)]
+    fb_ms2 = [host_ms(lambda: drain([dl.decode_video_rgb(uhd2, device="cuda")]))
+              for _ in range(2)]
+    print(f"phase 19 per {2 * UHD[2]}-frame 8K clip: in chunks median of {ENC_REPS} "
+          f"{statistics.median(ch_ms):.3f} ms ({', '.join(f'{v:.3f}' for v in ch_ms)}); "
+          f"whole, frame by frame (decode_video_rgb, route 'frames') "
+          f"{', '.join(f'{v:.3f}' for v in fb_ms2)} ms; peak device memory "
+          f"(torch.cuda.max_memory_allocated over the call): chunks {peak2} bytes, "
+          f"decode_video_rgb of the {UHD[2]}-frame stream {peak1} bytes, ratio "
+          f"{peak2 / peak1:.4f} ({card})")
+    check(peak2 < 1.25 * peak1, "more than one chunk was alive at a time")
+    del ref2
+
+    # phase 20: a stream batch and a GOP split over a list of devices (the
+    # one card named twice: two threads, two streams)
+    from pfv_torch.parallel import decode_stream_batch, decode_video_gops, split_gop_runs
+
+    two = ["cuda:0", "cuda:0"]
+    names = ["1080p", "1080p_pan", "1080p", "1080p_pan"]
+    zero_counts()
+    shards, mean_luma = decode_stream_batch([datas[k] for k in names], two)
+    gop_rgba = decode_video_gops(datas["1080p"], two, want="rgba")
+    par_launches = read_counts()
+    exact = all((p[s].cpu().numpy() == r).all()
+                for d, shard in enumerate(shards) for s in range(2)
+                for p, r in zip(shard, refs[names[2 * d + s]]))
+    want_mean = float(np.mean([refs[k][0].astype(np.float64).mean() for k in names]))
+    print(f"phase 20 decode_stream_batch of {len(names)} 1080p streams on {two}: shards "
+          f"{[tuple(sh[0].shape) for sh in shards]} pixel-exact vs ref_decode: {exact}; "
+          f"mean_luma {float(mean_luma):.6f}, numpy {want_mean:.6f}")
+    check(exact, "decode_stream_batch differs from ref_decode")
+    check(abs(float(mean_luma) - want_mean) < 0.5, "mean_luma is off numpy's mean")
+    g = dl.geometry(1920, 1080)
+    exact = torch.equal(gop_rgba.view(torch.int32),
+                        ref_rgba_plain(g, refs["1080p"], dev).view(torch.int32))
+    run_frames = split_gop_runs(datas["1080p"], 2)[1]
+    print(f"phase 20 decode_video_gops 1080p on {two} (runs of {run_frames} frames): "
+          f"{tuple(gop_rgba.shape)} byte-exact vs plain K2 of ref_decode planes: {exact}; "
+          f"launches {par_launches}")
+    check(exact, "decode_video_gops differs from the reference")
+    par_frames = sum(refs[k][0].shape[0] for k in names) + refs["1080p"][0].shape[0]
+    check(par_launches["K1"] == par_frames, "phase 20 did not launch K1 once per frame")
+    check(par_launches["K2"] == 2, "the GOP split did not launch K2 once per run")
+    check(all(v == 0 for k, v in par_launches.items() if k not in ("K1", "K2")),
+          "phase 20 launched a kernel of another route")
+    del shards, gop_rgba
+    batch = [datas[k] for k in names]
+    sb = {1: [], 2: []}
+    for _ in range(ENC_REPS):
+        for n, runs in sb.items():
+            runs.append(host_ms(lambda: decode_stream_batch(batch, ["cuda:0"] * n)))
+    print(f"phase 20 decode_stream_batch of the {len(names)} streams (yuv), host clock, "
+          f"synchronized, ms: " + "; ".join(
+              f"{n} list entr{'y' if n == 1 else 'ies'} (one card) median "
+              f"{statistics.median(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+              for n, v in sb.items()) + f" ({card})")
+
+    # phase 21: encode_video_gops, a run of GOPs per list entry
+    from pfv_torch import encode_video_gops
+
+    zero_counts()
+    data = encode_video_gops(*srcs["512x384"], FPS, QUALITY, KEYFRAMES, devices=two)
+    eg_launches = read_counts()
+    got_sha, want_sha = (hashlib.sha256(d).hexdigest() for d in (data, datas["512x384"]))
+    print(f"phase 21 encode_video_gops 512x384 on {two}: {len(data)} bytes sha256 "
+          f"{got_sha}; {CORPORA['512x384']} sha256 {want_sha}; equal: "
+          f"{data == datas['512x384']}; launches {eg_launches}")
+    check(data == datas["512x384"], "encode_video_gops differs from the committed corpus")
+    check(eg_launches["K6"] == eg_launches["FS"] == SOURCES["512x384"][2],
+          "encode_video_gops did not launch K6 and the frame step once per frame")
+    check(all(v == 0 for k, v in eg_launches.items() if k not in ("K6", "FS")),
+          "encode_video_gops launched another kernel")
+    eg = {}
+    for label, fn in (("encode_video", lambda: encode_video(
+            *srcs["512x384"], FPS, QUALITY, KEYFRAMES, device="cuda")),
+            ("encode_video_gops, 2 list entries (one thread)", lambda: encode_video_gops(
+                *srcs["512x384"], FPS, QUALITY, KEYFRAMES, devices=two))):
+        eg[label] = [host_ms(fn) for _ in range(ENC_REPS)]
+    print(f"phase 21 per 512x384 clip ({SOURCES['512x384'][2]} frames), ms: " + "; ".join(
+        f"{k} median {statistics.median(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+        for k, v in eg.items()) + f" ({card})")
+
+    # phase 22: the command-line tool, in-process
+    import tempfile
+
+    from pfv_torch import cli
+
+    def tool(*argv) -> str:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(list(argv))
+        return out.getvalue()
+
+    corpus = os.path.join(ROOT, CORPORA["512x384"])
+    n512 = refs["512x384"][0].shape[0]
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        pfv, npy = os.path.join(tmp, "synth.pfv"), os.path.join(tmp, "frames.npy")
+        text = {"info": tool("info", corpus), "verify": tool("verify", corpus),
+                "bench": tool("bench", corpus, "--runs", "3"),
+                "encode": tool("encode", pfv, "--synth", "8"),
+                "decode": tool("decode", pfv, "--output", npy)}
+        cli_launches = read_counts()
+        with open(pfv, "rb") as f:
+            made = f.read()
+        frames = torch.from_numpy(np.load(npy)).to(dev)
+    for k, v in text.items():
+        for line in v.splitlines():
+            print(f"phase 22 pfv-torch {k}: {line}")
+    cref = runtime.ref_decode(made)[1:4]
+    exact = rgb_exact(dl.geometry(512, 384), frames, cref, dev, step=8)
+    print(f"phase 22 encode --synth 8 then decode: {tuple(frames.shape)} equal to plain "
+          f"K2 of ref_decode of the encoded bytes: {exact}; launches {cli_launches}")
+    check(exact, "the tool's decoded frames differ from the reference")
+    check("512x384 @ 30 fps, 4 q-tables" in text["info"]
+          and "3 I-frames, 158 P-frames" in text["info"], "pfv-torch info is off")
+    check(text["verify"].startswith(f"OK: {n512} frames"), "pfv-torch verify failed")
+    check(text["bench"].count("RUN ") == 3, "pfv-torch bench did not print 3 runs")
+    check(cli_launches["K1"] == 4 * n512 + 8 and cli_launches["K2"] == 4
+          and cli_launches["K6"] == cli_launches["FS"] == 8,
+          "the tool's launch counts are off")
+    main_runs = {3: launches, 8: dec_launches, 9: fb_launches, 12: enc_launches,
+                 13: st_launches, 16: dense_launches, 18: ld_launches, 19: ch_launches,
+                 20: par_launches, 21: eg_launches, 22: cli_launches}
+    print("launches per main-path phase: " + "; ".join(
+        f"{ph}: " + ", ".join(f"{k} {v}" for k, v in r.items() if v)
+        for ph, r in main_runs.items()))
+
+    def total(k: str) -> int:
+        return sum(r[k] for r in main_runs.values())
+
     def kernel_entry(name, source, replaces, launches, err, t, b):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
+    # launches: the sum over the main-path phases, each counted from 0;
     # library_ms is null: no single PyTorch call computes any of these functions
     kernels = [
         kernel_entry("step_frame", "pfv_torch/csrc/step_kernel.cu",
-                     "pfv_tpu/ops/pallas/step_kernel.py:596", launches["K1"], err_k1,
+                     "pfv_tpu/ops/pallas/step_kernel.py:596", total("K1"), err_k1,
                      times[("K1", TIMED[0])], bounds["K1"]),
         kernel_entry("canvas_rgba", "pfv_torch/csrc/rgba_kernel.cu",
                      "pfv_tpu/ops/pallas/rgb_kernel.py:37",
-                     sum(r["K2"] for r in (launches, fb_launches, dense_launches)),
-                     err_k2, times["K2"], bounds["K2"]),
+                     total("K2"), err_k2, times["K2"], bounds["K2"]),
         kernel_entry("dense_seq_frame", "pfv_torch/csrc/dense_step_kernel.cu",
-                     "pfv_tpu/ops/pallas/step_kernel.py:440", dense_launches["K3"],
+                     "pfv_tpu/ops/pallas/step_kernel.py:440", total("K3"),
                      err_k3, times[("K3", "8K UHD")], bounds[("K3", "8K UHD")]),
         kernel_entry("dense_step_batch", "pfv_torch/csrc/dense_step_kernel.cu",
-                     "pfv_tpu/ops/pallas/step_kernel.py:263", dense_launches["K4"],
+                     "pfv_tpu/ops/pallas/step_kernel.py:263", total("K4"),
                      err_k4, times[("K4", "512x384")], bounds[("K4", "512x384")]),
         kernel_entry("idct_blocks", "pfv_torch/csrc/idct_kernel.cu",
-                     "pfv_tpu/ops/pallas/idct_kernel.py:59", dec_launches["K5"], err_k5,
+                     "pfv_tpu/ops/pallas/idct_kernel.py:59", total("K5"), err_k5,
                      times["K5"], bounds["K5"]),
         kernel_entry("fdct_quantize", "pfv_torch/csrc/fdct_kernel.cu",
                      "pfv_tpu/ops/pallas/dct_kernel.py:61",
-                     enc_launches["K6"] + st_launches["K6"], err_k6, times["K6"]["P"],
-                     bounds["K6"]["P"]),
+                     total("K6"), err_k6, times["K6"]["P"], bounds["K6"]["P"]),
         kernel_entry("mc_reconstruct", "pfv_torch/csrc/mc_kernel.cu",
-                     "pfv_tpu/ops/pallas/mc_kernel.py:31", dec_launches["K7"], err_k7,
+                     "pfv_tpu/ops/pallas/mc_kernel.py:31", total("K7"), err_k7,
                      times["K7"], bounds["K7"]),
-        # K5 + K7 as one kernel: the launches of the Decoder, fallback and
-        # encode runs (phases 8, 9, 12, 13)
+        # K5 + K7 as one kernel
         dict(kernel_entry("frame_step", "pfv_torch/csrc/frame_step_kernel.cu",
                           "pfv_tpu/ops/pallas/idct_kernel.py:59",
-                          sum(r["FS"] for r in (dec_launches, fb_launches, enc_launches,
-                                                st_launches)),
-                          err_fs, times["FS"], bounds["FS"]),
+                          total("FS"), err_fs, times["FS"], bounds["FS"]),
              also_replaces="pfv_tpu/ops/pallas/mc_kernel.py:31"),
     ]
     sides = [("K1 1080p", bounds["K1"]), ("K2 1080p", bounds["K2"])] + [

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from pfv_torch import runtime
-from pfv_torch.dec import FrameDecoder, frame_packets
+from pfv_torch.dec import (FrameDecoder, frame_packets, keyframe_runs, keyframes_of,
+                           scan_packets)
 from pfv_torch.frame import Geometry, geometry, slice_yuv
 from pfv_torch.kernels.dense_step import MAX_ROW_SPAN, seq_frames_dense, step_gops
 from pfv_torch.kernels.rgba import canvas_rgba
@@ -256,25 +257,36 @@ def dequant_multipliers(qtables, ftype, hc, qidx) -> torch.Tensor:
     return torch.stack([tables(qidx[i_idx]), tables(qidx[p_idx])])
 
 
+def pageable_copy(dev):
+    """The plain host-to-device copy of a list of numpy arrays: one
+    blocking `.to(dev)` each, from pageable memory, on the current stream."""
+    return lambda arrays: [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def _meta_tables(g: Geometry, meta_t, qtables_t):
+    """The meta words (int16 bits) and the q-tables, both on the device ->
+    (mvx, mvy, hc (F, nb), ftype (F,) int32, qmul (2, 2, 64) int32)."""
+    mvx, mvy, hc, ftype, qidx = unpack_meta(meta_t.to(torch.int32) & 0xFFFF, g.nb)
+    return mvx, mvy, hc, ftype.contiguous(), dequant_multipliers(qtables_t, ftype, hc, qidx)
+
+
 def upload_meta(info, g: Geometry, meta, dev):
     """The u16 meta words -> copied to device `dev`, unpacked: (mvx, mvy,
     hc (F, nb), ftype (F,) int32, qmul (2, 2, 64) int32)."""
-    meta_t = torch.from_numpy(meta.view(np.int16)).to(dev).to(torch.int32) & 0xFFFF
-    mvx, mvy, hc, ftype, qidx = unpack_meta(meta_t, g.nb)
-    qmul = dequant_multipliers(torch.from_numpy(info["qtables"]).to(dev),
-                               ftype, hc, qidx)
-    return mvx, mvy, hc, ftype.contiguous(), qmul
+    return _meta_tables(g, *pageable_copy(dev)([meta.view(np.int16), info["qtables"]]))
 
 
-def upload(host, device="cuda"):
+def upload(host, device="cuda", h2d=None):
     """`demux_host`'s output -> copied to `device`, with the per-clip tables
     built there: (geometry, (units, coff, dy, dx, hc, ftype, qmul)), the
-    inputs of `step_frames`."""
+    inputs of `step_frames`. `h2d` copies a list of numpy arrays to the
+    device (`pageable_copy` unless given; the loader's copies from pinned
+    memory); the tables are built on the current stream."""
     info, g, units, coff, meta = host
-    dev = torch.device(device)
-    units_t = torch.from_numpy(units.view(np.int32)).to(dev)
-    coff_t = torch.from_numpy(coff).to(dev)
-    mvx, mvy, hc, ftype, qmul = upload_meta(info, g, meta, dev)
+    h2d = h2d or pageable_copy(torch.device(device))
+    units_t, coff_t, meta_t, qt = h2d([units.view(np.int32), coff, meta.view(np.int16),
+                                       info["qtables"]])
+    mvx, mvy, hc, ftype, qmul = _meta_tables(g, meta_t, qt)
     dy, dx, hcm = block_maps(g, mvx, mvy, hc)
     return g, (units_t, coff_t, dy, dx, hcm, ftype, qmul)
 
@@ -295,22 +307,37 @@ def densify_pstep(deltas, vals, f: int, row_span: int) -> torch.Tensor:
     return buf[:total].to(torch.int16).view(f, 64, row_span)
 
 
+def upload_pstep(host, device="cuda", h2d=None):
+    """`demux_host_packed`'s output -> copied to `device` (`h2d` as
+    `upload`'s), the tables unpacked there: (geometry, (deltas (n,) int16,
+    vals (n,) int8, mvx, mvy, hc (F, nb), ftype (F,) int32, qmul (2, 2, 64)
+    int32))."""
+    info, g, deltas, vals, meta = host
+    h2d = h2d or pageable_copy(torch.device(device))
+    d, v, meta_t, qt = h2d([deltas.view(np.int16), vals, meta.view(np.int16),
+                            info["qtables"]])
+    return g, (d, v, *_meta_tables(g, meta_t, qt))
+
+
+def _densified(g: Geometry, pstep, frames: int = 0):
+    """`upload_pstep`'s tensors with the unit stream densified: (coeffs
+    (max(F, frames), 64, row_span) i16, mvx, mvy, hc, ftype, qmul)."""
+    d, v, *tables = pstep
+    return (densify_pstep(d, v, max(tables[3].shape[0], frames), pstep_tables(g)[2]),
+            *tables)
+
+
 def upload_packed(host, frames: int = 0, device="cuda"):
     """`demux_host_packed`'s output -> copied to `device` and densified:
     (geometry, (coeffs (max(F, frames), 64, row_span) i16, mvx, mvy, hc
     (F, nb), ftype (F,) int32, qmul (2, 2, 64) int32))."""
-    info, g, deltas, vals, meta = host
-    dev = torch.device(device)
-    mvx, mvy, hc, ftype, qmul = upload_meta(info, g, meta, dev)
-    d = torch.from_numpy(deltas.view(np.int16)).to(dev)
-    coeffs = densify_pstep(d, torch.from_numpy(vals).to(dev),
-                           max(ftype.shape[0], frames), pstep_tables(g)[2])
-    return g, (coeffs, mvx, mvy, hc, ftype, qmul)
+    g, pstep = upload_pstep(host, device)
+    return g, _densified(g, pstep, frames)
 
 
-def _dense_canvases(host, device):
+def _dense_canvases(g: Geometry, pstep):
     """The "dense" route: densify, then K3 over the clip."""
-    g, (coeffs, mvx, mvy, hc, ftype, qmul) = upload_packed(host, device=device)
+    coeffs, mvx, mvy, hc, ftype, qmul = _densified(g, pstep)
     dy, dx, hcm = block_maps(g, mvx, mvy, hc)
     return seq_frames_dense(coeffs, dy, dx, hcm, ftype, qmul, g.chh, g.cw, g.gly)
 
@@ -328,8 +355,16 @@ def upload_gops(host, n_gops: int, gop_len: int, device="cuda"):
         raise ValueError(f"{n_gops} GOPs of {gop_len} frames do not hold {f} frames")
     if (ftype_h[::gop_len] != 1).any():
         raise ValueError(f"a GOP of {gop_len} frames does not open with an I-frame")
-    g, (coeffs, mvx, mvy, hc, ftype, qmul) = upload_packed(host, n, device)
-    pad = n - f
+    g, pstep = upload_pstep(host, device)
+    return g, f, *_gop_inputs(g, pstep, n_gops, gop_len)
+
+
+def _gop_inputs(g: Geometry, pstep, n_gops: int, gop_len: int):
+    """`upload_pstep`'s tensors -> K4's (per-step tensors, qmul) for G GOPs
+    of L frames that hold the stream's F frames."""
+    n = n_gops * gop_len
+    coeffs, mvx, mvy, hc, ftype, qmul = _densified(g, pstep, n)
+    pad = n - ftype.shape[0]
 
     def padded(t, fill):
         return torch.cat([t, torch.full((pad,) + t.shape[1:], fill, dtype=t.dtype,
@@ -339,16 +374,15 @@ def upload_gops(host, n_gops: int, gop_len: int, device="cuda"):
     per_step = (coeffs.view(n_gops, gop_len, 64, -1),
                 *(m.view(n_gops, gop_len, g.gch, g.gcw) for m in maps),
                 padded(ftype, 2).view(n_gops, gop_len))
-    return g, f, per_step, qmul
+    return per_step, qmul
 
 
-def _gops_canvases(host, n_gops: int, gop_len: int, device):
+def _gops_canvases(g: Geometry, f: int, per_step, qmul):
     """The "gops" route: one call of K4 (L launches), step l decoding frame
     l of every GOP from frame l-1 of the same GOP; the canvases un-stacked
     and cut to F."""
-    g, f, per_step, qmul = upload_gops(host, n_gops, gop_len, device)
     out = step_gops(*per_step, qmul, g.chh, g.cw, g.gly)
-    return out.view(n_gops * gop_len, g.chh, g.cw)[:f]
+    return out.view(-1, g.chh, g.cw)[:f]
 
 
 def decode_frames(data: bytes, device="cuda"):
@@ -372,18 +406,39 @@ def decode_frames(data: bytes, device="cuda"):
     return g, canvases
 
 
+def upload_route(route: Route, device="cuda", h2d=None):
+    """The first half of a decode: the route's demux output copied to
+    `device` (`h2d` as `upload`'s) and its tables unpacked there, on the
+    current stream. -> the route's device tensors: `step_frames`' inputs
+    ("units"), `upload_pstep`'s tensors ("dense", "gops"), None ("frames":
+    that route uploads frame by frame as it decodes)."""
+    if route.kind == "units":
+        return upload(route.host, device, h2d)[1]
+    if route.kind in ("dense", "gops"):
+        return upload_pstep(route.host, device, h2d)[1]
+    return None
+
+
+def run_route(route: Route, uploaded, data: bytes, device="cuda"):
+    """The second half: the route's frame step over `upload_route`'s
+    tensors, on the current stream -> (F, chh, cw) u8 canvases. `route.host`
+    is not read; `data`, the stream's bytes, only by route "frames"."""
+    g = route.g
+    if route.kind == "units":
+        return step_frames(*uploaded, g.chh, g.cw, g.gly)
+    if route.kind == "gops":
+        return _gops_canvases(g, uploaded[5].shape[0],
+                              *_gop_inputs(g, uploaded, *route.gops))
+    if route.kind == "dense":
+        return _dense_canvases(g, uploaded)
+    return decode_frames(data, device)[1]
+
+
 def decode_canvases(data: bytes, device="cuda", num_threads: int = 0):
     """Decode a whole stream -> (geometry, (F, chh, cw) u8 canvases) by the
     route `choose_route` picks."""
     route = choose_route(data, num_threads)
-    if route.kind == "units":
-        g, args = upload(route.host, device)
-        return g, step_frames(*args, g.chh, g.cw, g.gly)
-    if route.kind == "gops":
-        return route.g, _gops_canvases(route.host, *route.gops, device)
-    if route.kind == "dense":
-        return route.g, _dense_canvases(route.host, device)
-    return decode_frames(data, device)
+    return route.g, run_route(route, upload_route(route, device), data, device)
 
 
 def _output(g: Geometry, canvases, want: str):
@@ -408,7 +463,8 @@ def decode_packed_gops(host, g: int, l: int, want: str = "rgb", device="cuda"):
     gate = stream_gate(*_frame_meta(meta, geo.nb), info["qtables"].shape[0])
     if gate is not None:
         raise ValueError(f"gate '{gate}' failed for a {geo.width}x{geo.height} stream")
-    return _output(geo, _gops_canvases(host, g, l, device), want)
+    geo, f, per_step, qmul = upload_gops(host, g, l, device)
+    return _output(geo, _gops_canvases(geo, f, per_step, qmul), want)
 
 
 def decode_video_yuv(data: bytes, device="cuda", num_threads: int = 0):
@@ -433,6 +489,47 @@ def decode_video_rgb(data: bytes, device="cuda",
                      num_threads: int = 0) -> torch.Tensor:
     """Decode a whole .pfv stream to a (F, H, W, 3) u8 RGB view."""
     return _output(*decode_canvases(data, device, num_threads), "rgb")
+
+
+def chunk_bounds(starts, frames: int, cap: int) -> list[int]:
+    """Greedy chunking: the first frame of each chunk, every chunk as many
+    whole GOPs (`starts`: the I-frames' indices, the first 0) as hold at
+    most `cap` frames. Raises ValueError for a GOP longer than `cap`."""
+    bounds = [0]
+    for s, gop_end in zip(starts, [*starts[1:], frames]):
+        if gop_end - bounds[-1] > cap and s > bounds[-1]:
+            bounds.append(s)
+        if gop_end - bounds[-1] > cap:
+            raise ValueError(f"a single GOP ({gop_end - bounds[-1]} frames) exceeds "
+                             f"max_frames_per_chunk={cap}")
+    return bounds
+
+
+def chunk_streams(data: bytes, max_frames_per_chunk: int):
+    """Cut a stream at I-packets (a GOP is a stream of its own) into runs of
+    as many whole GOPs as hold at most `max_frames_per_chunk` frames: a
+    generator of (start_frame, the run between the stream's header and an
+    EOF packet). A drop frame or an unknown packet starts no GOP and stays
+    with the run it lies in. Raises ValueError unless the first frame is an
+    I-frame, and for a GOP longer than the cap."""
+    _, spans = scan_packets(data)
+    starts, frames = keyframes_of(spans)
+    bounds = chunk_bounds(starts, frames, max_frames_per_chunk)
+    yield from zip(bounds, keyframe_runs(data, spans, bounds))
+
+
+def decode_video_rgb_chunks(data: bytes, max_frames_per_chunk: int = 512,
+                            num_threads: int = 0, device="cuda"):
+    """Decode a stream of any length chunk by chunk: a generator of
+    (start_frame, (F_chunk, H, W, 3) u8 RGB on `device`).
+
+    Each of `chunk_streams`' runs decodes by the route `choose_route` picks
+    for it: a clip whose length alone fails a route's gate
+    ("F*64*row_span < 2^31") passes it chunk by chunk. No chunk is padded.
+    One chunk's coefficients and canvases are alive at a time: the
+    generator holds nothing of a chunk once it has yielded it."""
+    for start, chunk in chunk_streams(data, max_frames_per_chunk):
+        yield start, decode_video_rgb(chunk, device, num_threads)
 
 
 def plane_checksums(y, u, v) -> torch.Tensor:

@@ -48,25 +48,87 @@ class StreamIOError(DecodeError, EOFError):
     EOFError, as the JAX package's is."""
 
 
-def split_packets(data: bytes):
-    """-> (header info, [(ptype, payload)]): every packet of `data` before
-    the EOF packet, drop frames and unknown packets included, payloads as
-    memoryviews. Stops at the EOF packet, or where less than a packet
-    header is left, as the scalar decoder does; raises ValueError where a
-    payload runs past the end."""
+def scan_packets(data: bytes):
+    """-> (header info, [(start, end, ptype)]): the byte span, its 5-byte
+    packet header included, of every packet of `data` before the EOF packet,
+    drop frames and unknown packets included. Stops at the EOF packet, or
+    where less than a packet header is left, as the scalar decoder does;
+    raises ValueError where a payload runs past the end."""
     info, off = runtime.parse_header(data)
-    view = memoryview(data)
-    packets = []
+    spans = []
     while off + 5 <= len(data):
         ptype, plen = struct.unpack_from("<BI", data, off)
-        off += 5
-        if off + plen > len(data):
+        end = off + 5 + plen
+        if end > len(data):
             raise ValueError("corrupt packet stream: a payload runs past the end")
         if ptype == 0:
             break
-        packets.append((ptype, view[off:off + plen]))
-        off += plen
-    return info, packets
+        spans.append((off, end, ptype))
+        off = end
+    return info, spans
+
+
+def makes_frame(start: int, end: int, ptype: int) -> bool:
+    """Whether the packet of that span makes a frame: an I-packet with a
+    payload or a P-packet. A drop frame (an I-packet without one, quirk Q8)
+    and an unknown packet make none, as `runtime.count_frames` counts."""
+    return ptype == 2 or (ptype == 1 and end - start > 5)
+
+
+def split_packets(data: bytes):
+    """-> (header info, [(ptype, payload)]): `scan_packets`' packets, the
+    payloads as memoryviews."""
+    info, spans = scan_packets(data)
+    view = memoryview(data)
+    return info, [(t, view[a + 5:b]) for a, b, t in spans]
+
+
+EOF_PACKET = struct.pack("<BI", 0, 0)
+
+
+def keyframes_of(spans) -> tuple[list[int], int]:
+    """-> (the frame index of every I-frame, the number of frames) of
+    `scan_packets`' spans. Raises ValueError unless the first frame is an
+    I-frame: only then is every keyframe-delimited run a stream of its
+    own."""
+    kinds = [t for a, b, t in spans if makes_frame(a, b, t)]
+    starts = [i for i, t in enumerate(kinds) if t == 1]
+    if not starts or starts[0] != 0:
+        raise ValueError("stream must start with an I-frame")
+    return starts, len(kinds)
+
+
+def balanced_bounds(starts, frames: int, n: int) -> list[int]:
+    """The first frame of each of n contiguous runs of whole GOPs, their
+    frame counts balanced: a run ends at the GOP with which the running
+    count reaches its proportional share of `frames`, or where only one GOP
+    is left for each run to come. starts: the I-frames' indices, the first
+    0, at least n of them."""
+    bounds, run = [0], 1
+    for k, gop_end in enumerate([*starts[1:], frames], 1):
+        left = len(starts) - k
+        if run < n and left >= n - run and (gop_end >= frames * run / n
+                                            or left == n - run):
+            bounds.append(gop_end)
+            run += 1
+    return bounds
+
+
+def keyframe_runs(data: bytes, spans, bounds, tails=None):
+    """A stream cut at keyframes into streams of their own, run by run (a
+    generator of bytes: the stream's header, the run's packets, `tail`, an
+    EOF packet). spans: `scan_packets`' spans; bounds: ascending frame
+    indices, the first 0, every one an I-frame's. Run k holds the packets
+    from frame bounds[k] up to frame bounds[k + 1] (the first run from the
+    first packet, the last to the last): a packet that makes no frame stays
+    with the run it lies in. tails[k], where given, goes between run k's
+    packets and its EOF packet."""
+    frames = [i for i, s in enumerate(spans) if makes_frame(*s)]
+    cuts = [0] + [frames[b] for b in bounds[1:]] + [len(spans)]
+    view, header = memoryview(data), data[:spans[0][0]]
+    for k, (a, b) in enumerate(zip(cuts, cuts[1:])):
+        yield b"".join([header, view[spans[a][0]:spans[b - 1][1]],
+                        tails[k] if tails else b"", EOF_PACKET])
 
 
 def frame_packets(data: bytes):

@@ -1,14 +1,17 @@
 """Whole-clip encode: every frame on the device, one compaction, one fetch,
-then the host mux (counterpart of pfv_tpu/encoding.py `encode_video`).
+then the host mux (counterpart of pfv_tpu/encoding.py `encode_video` and
+`encode_video_gops`).
 
 The frames go to the device in one upload. Each frame is encoded as the
 streaming Encoder does, through a `device.FrameEncoder` (motion search, one
 launch of K6, one of the in-loop frame step); K6 writes its coefficients,
 zeros in skipped blocks, straight into one (F, nb, 256) int16 buffer. One
 `torch.nonzero` compacts the clip (the JAX package needs a counting pass
-and a guessed cap for this: XLA has no data-dependent shapes), one copy brings the nonzeros and the block headers
-to the host, and the shared C++ runtime entropy-codes each frame from its
-nonzeros. The bytes equal the streaming Encoder's and the JAX package's.
+and a guessed cap for this: XLA has no data-dependent shapes), one copy
+brings the nonzeros and the block headers to the host, and the shared C++
+runtime entropy-codes each frame from its nonzeros. The bytes equal the
+streaming Encoder's and the JAX package's. `encode_video_gops` gives each
+of a list of devices a run of whole GOPs and muxes once.
 """
 
 from __future__ import annotations
@@ -21,11 +24,13 @@ import numpy as np
 import torch
 
 from pfv_torch import runtime
+from pfv_torch.dec import balanced_bounds
 from pfv_torch.device import INTER_Q, INTRA_Q, FrameEncoder
 from pfv_torch.enc import container_header
 from pfv_torch.frame import geometry
 from pfv_torch.ops.pframe import skip_threshold
 from pfv_torch.ops.quant import derive_q_tables
+from pfv_torch.parallel.devices import as_devices
 
 
 def _pad_frames(frames: np.ndarray, ph: int, pw: int, clear: int) -> np.ndarray:
@@ -49,6 +54,76 @@ def _keyframe_mask(keyframes, f: int) -> np.ndarray:
     return is_key
 
 
+def _check_planes(y, u, v) -> None:
+    f, h, w = y.shape
+    if w % 2 or h % 2:
+        raise ValueError("width and height must be even (4:2:0 chroma)")
+    if u.shape != (f, h // 2, w // 2) or v.shape != u.shape:
+        raise ValueError(f"chroma planes must be (F, H/2, W/2); got {u.shape} / "
+                         f"{v.shape} for luma {y.shape}")
+
+
+def _padded_planes(g, y, u, v) -> list[np.ndarray]:
+    """The clip's planes padded to whole macroblocks: Y with 0, U and V
+    with 128."""
+    shapes, clear = ((g.ly0, g.lyw), (g.lc0, g.lcw), (g.lc0, g.lcw)), (0, 128, 128)
+    return [_pad_frames(p, *s, c) for p, s, c in zip((y, u, v), shapes, clear)]
+
+
+def _encode_frames(enc: FrameEncoder, src, is_key):
+    """The frame loop over a run of frames that opens with a keyframe: each
+    of the padded (F, ph, pw) u8 planes `src` on enc's device through
+    `enc` -> (coeffs (F, nb, 256) i16, zeros in skipped blocks, mvx, mvy, hc
+    (F, nb)) on the device. Nothing here waits for the device."""
+    g, dev = enc.g, enc.device
+    f = src[0].shape[0]
+    live = torch.empty((f, g.nb, 256), dtype=torch.int16, device=dev)
+    mvx = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
+    mvy = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
+    hc = torch.ones((f, g.nb), dtype=torch.uint8, device=dev)
+    enc.check([p[0] for p in src], live[0], (mvy[0], mvx[0], hc[0]))
+    for t in range(f):
+        planes = [p[t] for p in src]
+        if is_key[t]:
+            enc.iframe(planes, live[t])
+        else:
+            enc.pframe(planes, live[t], (mvy[t], mvx[t], hc[t]))
+    return live, mvx, mvy, hc
+
+
+def _compact(live, mvx, mvy, hc):
+    """One compaction of `_encode_frames`' run -> (idx, val, counts, mvx,
+    mvy, hc) on the device: every frame's nonzero coefficients (frame-local
+    flat indices in ascending order, their values, the number per frame)
+    and the block headers. `torch.nonzero` waits for the device."""
+    f = live.shape[0]
+    flat = live.view(f, -1)
+    frame_of, idx = torch.nonzero(flat, as_tuple=True)
+    val = flat[frame_of, idx]
+    counts = torch.bincount(frame_of, minlength=f)
+    return idx.to(torch.int32), val, counts, mvx, mvy, hc
+
+
+def _mux(w: int, h: int, framerate: int, qt_host, nb: int, is_key, idx, val, counts,
+         mvx, mvy, hc) -> bytes:
+    """The host mux: the container's header, each frame's payload
+    entropy-coded from its nonzeros (`_compact`'s arrays, on the host),
+    the EOF packet."""
+    out = [container_header(w, h, framerate, qt_host)]
+    ends = np.cumsum(counts)
+    for t in range(len(is_key)):
+        lo, hi = ends[t] - counts[t], ends[t]
+        if is_key[t]:
+            payload = runtime.encode_iframe_payload_sparse(
+                idx[lo:hi], val[lo:hi], nb, INTRA_Q)
+        else:
+            payload = runtime.encode_pframe_payload_sparse(
+                idx[lo:hi], val[lo:hi], mvx[t], mvy[t], hc[t], INTER_Q)
+        out += [struct.pack("<BI", 1 if is_key[t] else 2, len(payload)), payload]
+    out.append(struct.pack("<BI", 0, 0))
+    return b"".join(out)
+
+
 def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
                  quality: int, keyframes: Sequence[bool] | int = 15, timer=None,
                  device="cuda") -> bytes:
@@ -63,59 +138,56 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
     """
     stage = timer.stage if timer is not None else (lambda name: contextlib.nullcontext())
     f, h, w = y.shape
-    if w % 2 or h % 2:
-        raise ValueError("width and height must be even (4:2:0 chroma)")
-    if u.shape != (f, h // 2, w // 2) or v.shape != u.shape:
-        raise ValueError(f"chroma planes must be (F, H/2, W/2); got {u.shape} / "
-                         f"{v.shape} for luma {y.shape}")
+    _check_planes(y, u, v)
     is_key = _keyframe_mask(keyframes, f)
     qt_host = derive_q_tables(quality)
     dev = torch.device(device)
     g = geometry(w, h)
-    shapes, clear = ((g.ly0, g.lyw), (g.lc0, g.lcw), (g.lc0, g.lcw)), (0, 128, 128)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
-    padded = [_pad_frames(p, *s, c) for p, s, c in zip((y, u, v), shapes, clear)]
+    padded = _padded_planes(g, y, u, v)
     with stage("h2d upload"):
         enc = FrameEncoder(g, qt_host, skip_threshold(quality), dev)
         src = [torch.from_numpy(p).to(dev) for p in padded]
         sync()
 
     with stage("device encode"):
-        live = torch.empty((f, g.nb, 256), dtype=torch.int16, device=dev)
-        mvx = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
-        mvy = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
-        hc = torch.ones((f, g.nb), dtype=torch.uint8, device=dev)
-        enc.check([p[0] for p in src], live[0], (mvy[0], mvx[0], hc[0]))
-        for t in range(f):
-            planes = [p[t] for p in src]
-            if is_key[t]:
-                enc.iframe(planes, live[t])
-            else:
-                enc.pframe(planes, live[t], (mvy[t], mvx[t], hc[t]))
-        # frame-local flat indices, each frame's in ascending order
-        flat = live.view(f, -1)
-        frame_of, idx = torch.nonzero(flat, as_tuple=True)
-        val = flat[frame_of, idx]
-        counts = torch.bincount(frame_of, minlength=f)
-        idx = idx.to(torch.int32)
+        coded = _compact(*_encode_frames(enc, src, is_key))
         sync()
 
     with stage("d2h fetch"):
-        idx, val, counts, mvx, mvy, hc = (
-            t.cpu().numpy() for t in (idx, val, counts, mvx, mvy, hc))
+        coded = [t.cpu().numpy() for t in coded]
 
     with stage("host mux"):
-        out = [container_header(w, h, framerate, qt_host)]
-        ends = np.cumsum(counts)
-        for t in range(f):
-            lo, hi = ends[t] - counts[t], ends[t]
-            if is_key[t]:
-                payload = runtime.encode_iframe_payload_sparse(
-                    idx[lo:hi], val[lo:hi], g.nb, INTRA_Q)
-            else:
-                payload = runtime.encode_pframe_payload_sparse(
-                    idx[lo:hi], val[lo:hi], mvx[t], mvy[t], hc[t], INTER_Q)
-            out += [struct.pack("<BI", 1 if is_key[t] else 2, len(payload)), payload]
-        out.append(struct.pack("<BI", 0, 0))
-    return b"".join(out)
+        return _mux(w, h, framerate, qt_host, g.nb, is_key, *coded)
+
+
+def encode_video_gops(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
+                      quality: int, keyframes: Sequence[bool] | int = 15,
+                      devices=None) -> bytes:
+    """`encode_video` over a list of devices (all CUDA devices unless
+    given), byte-identical output. An I-frame resets the reconstruction, so
+    keyframe-delimited GOPs encode independently: the clip is cut into
+    contiguous runs of whole GOPs, balanced by frames, one run per device
+    (as many runs as there are GOPs, where those are fewer). One thread
+    enqueues each device's run in turn through `encode_video`'s frame loop,
+    so a device works while the next one's run is enqueued; then each run is
+    compacted and fetched, and one host mux writes the frames in order."""
+    f, h, w = y.shape
+    _check_planes(y, u, v)
+    is_key = _keyframe_mask(keyframes, f)
+    devices = as_devices(devices)
+    qt_host = derive_q_tables(quality)
+    g = geometry(w, h)
+    starts = np.flatnonzero(is_key).tolist()
+    devices = devices[:len(starts)]
+    bounds = [*balanced_bounds(starts, f, len(devices)), f]
+    padded = _padded_planes(g, y, u, v)
+    runs = []
+    for dev, a, b in zip(devices, bounds, bounds[1:]):
+        enc = FrameEncoder(g, qt_host, skip_threshold(quality), dev)
+        src = [torch.from_numpy(p[a:b]).to(dev) for p in padded]
+        runs.append(_encode_frames(enc, src, is_key[a:b]))
+    runs = [[t.cpu().numpy() for t in _compact(*run)] for run in runs]
+    coded = [np.concatenate(part) for part in zip(*runs)]
+    return _mux(w, h, framerate, qt_host, g.nb, is_key, *coded)

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 
 
@@ -101,3 +102,21 @@ def lib() -> ctypes.CDLL:
             so.pfv_frame_step.restype = i
             _lib = so
         return _lib
+
+
+def launch(entry: str, device, *args) -> int:
+    """Call the library's `entry` on `device`: CUDA's current device is
+    `device` for the call (the kernels launch on the current device, and a
+    caller's thread may stand on another), and the device's current stream
+    goes in as the last argument. Returns the entry's CUDA error code."""
+    import torch
+
+    with torch.cuda.device(device):
+        return getattr(lib(), entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+def count(wrapper, n: int = 1) -> None:
+    """Add n kernel launches to `wrapper.launches`; threads of several
+    devices count into the same wrapper."""
+    with _count_lock:
+        wrapper.launches += n

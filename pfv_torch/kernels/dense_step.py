@@ -126,14 +126,13 @@ def _stripes(frame_coeffs, chh: int) -> torch.Tensor:
     return frame_coeffs.view(64, gch, -1).transpose(0, 1).contiguous().to(torch.int32)
 
 
-def _lib_stream(t: torch.Tensor):
-    """The kernel library and t's current stream; raises unless t is on a
-    CUDA device."""
+def _build_for(t: torch.Tensor):
+    """The kernels' build module; raises unless t is on a CUDA device."""
     if t.device.type != "cuda":
         raise ValueError(f"no dense step kernel for device {t.device}")
     from pfv_torch.kernels import build
 
-    return build.lib(), torch.cuda.current_stream(t.device).cuda_stream
+    return build
 
 
 def seq_frames_dense(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int,
@@ -154,15 +153,15 @@ def seq_frames_dense(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int,
         raise ValueError("all inputs must be contiguous")
     if coeffs.device.type == "cpu":
         return seq_frames_dense_plain(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly)
-    lib, stream = _lib_stream(coeffs)
+    build = _build_for(coeffs)
     frames = ftype.shape[0]
     out = torch.empty((frames, chh, cw), dtype=torch.uint8, device=coeffs.device)
-    rc = lib.pfv_dense_seq_clip(*(t.data_ptr() for t in (coeffs, dy, dx, hc, ftype,
-                                                        qmul, out)),
-                                frames, chh, cw, gly, row_span, stream)
+    rc = build.launch("pfv_dense_seq_clip", coeffs.device,
+                      *(t.data_ptr() for t in (coeffs, dy, dx, hc, ftype, qmul, out)),
+                      frames, chh, cw, gly, row_span)
     if rc:
         raise RuntimeError(f"dense step kernel launch failed: CUDA error {rc}")
-    seq_frames_dense.launches += frames
+    build.count(seq_frames_dense, frames)
     return out
 
 
@@ -201,19 +200,19 @@ def step_gops(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int, gly: int,
     if coeffs.device.type == "cpu":
         return step_gops_plain(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly,
                                prev, out)
-    lib, stream = _lib_stream(coeffs)
+    build = _build_for(coeffs)
     gops, steps = ftype.shape
     if gops and steps:
-        rc = lib.pfv_dense_gops(
-            prev.data_ptr() if prev is not None else None,
+        rc = build.launch(
+            "pfv_dense_gops", coeffs.device, prev.data_ptr() if prev is not None else None,
             prev.stride(0) if prev is not None else 0,
             coeffs.data_ptr(), *coeffs.stride()[:2], dy.data_ptr(), dx.data_ptr(),
             hc.data_ptr(), *dy.stride()[:2], ftype.data_ptr(), *ftype.stride(),
             qmul.data_ptr(), out.data_ptr(), *out.stride()[:2], gops, steps, chh,
-            cw, gly, row_span, stream)
+            cw, gly, row_span)
         if rc:
             raise RuntimeError(f"dense step kernel launch failed: CUDA error {rc}")
-        step_gops.launches += steps
+        build.count(step_gops, steps)
     return out
 
 

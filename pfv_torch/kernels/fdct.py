@@ -179,14 +179,15 @@ class FrameEncode:
         src = [t.data_ptr() for t in sources] + [None] * pad
         strides = [t.stride(0) for t in sources] + [0] * pad
         mvy, mvx, hc = (None,) * 3 if motion is None else motion
-        rc = build.lib().pfv_frame_encode(
-            *src, *strides, _ptr(mvy), _ptr(mvx), _ptr(hc), int(motion is None),
-            self.recip.data_ptr(), *q, None if motion is None else prev.data_ptr(),
+        rc = build.launch(
+            "pfv_frame_encode", out.device, *src, *strides, _ptr(mvy), _ptr(mvx),
+            _ptr(hc), int(motion is None), self.recip.data_ptr(), *q,
+            None if motion is None else prev.data_ptr(),
             0 if motion is None else prev.stride(0), out.data_ptr(), self._desc,
-            len(self.layout), torch.cuda.current_stream(out.device).cuda_stream)
+            len(self.layout))
         if rc:
             raise RuntimeError(f"frame-encode kernel launch failed: CUDA error {rc}")
-        FrameEncode.launches += 1
+        build.count(FrameEncode)
         return out
 
     def _plain_origins(self):
@@ -239,7 +240,9 @@ def fdct_blocks(blocks: torch.Tensor, q_table: torch.Tensor,
             motion = (zero, zero, torch.ones(n, dtype=torch.uint8, device=blocks.device))
         step.launch((blocks.view(16 * n, 16),), motion, (0,),
                     None if win is None else win.view(16 * n, 16), out.view(n, 256))
-        fdct_blocks.launches += 1
+        from pfv_torch.kernels import build
+
+        build.count(fdct_blocks)
     return out
 
 

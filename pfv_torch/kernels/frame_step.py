@@ -181,15 +181,15 @@ class FrameStep:
 
         q = [int(v) for v in qidx] + [0] * (MAX_PLANES - len(qidx))
         mvy, mvx, hc = (None,) * 3 if motion is None else motion
-        rc = build.lib().pfv_frame_step(
-            coeffs.data_ptr(), _ptr(mvy), _ptr(mvx), _ptr(hc), int(motion is None),
-            self.mul.data_ptr(), *q, None if motion is None else prev.data_ptr(),
+        rc = build.launch(
+            "pfv_frame_step", coeffs.device, coeffs.data_ptr(), _ptr(mvy), _ptr(mvx),
+            _ptr(hc), int(motion is None), self.mul.data_ptr(), *q,
+            None if motion is None else prev.data_ptr(),
             0 if motion is None else prev.stride(0), out.data_ptr(), out.stride(0),
-            self._desc, len(self.layout),
-            torch.cuda.current_stream(coeffs.device).cuda_stream)
+            self._desc, len(self.layout))
         if rc:
             raise RuntimeError(f"frame-step kernel launch failed: CUDA error {rc}")
-        FrameStep.launches += 1
+        build.count(FrameStep)
         return out
 
     def _plain_origins(self):

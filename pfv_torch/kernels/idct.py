@@ -40,16 +40,14 @@ def decode_blocks(coeffs: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no iDCT kernel for device {coeffs.device}")
     from pfv_torch.kernels import build
 
-    lib = build.lib()
     n = coeffs.shape[0]
     out = torch.empty((n, 16, 16), dtype=torch.uint8, device=coeffs.device)
     if n:
-        rc = lib.pfv_idct_blocks(
-            coeffs.data_ptr(), q_table.data_ptr(), out.data_ptr(), 4 * n,
-            torch.cuda.current_stream(coeffs.device).cuda_stream)
+        rc = build.launch("pfv_idct_blocks", coeffs.device, coeffs.data_ptr(),
+                          q_table.data_ptr(), out.data_ptr(), 4 * n)
         if rc:
             raise RuntimeError(f"iDCT kernel launch failed: CUDA error {rc}")
-        decode_blocks.launches += 1
+        build.count(decode_blocks)
     return out
 
 

@@ -78,19 +78,17 @@ def mc_reconstruct(res, ref, by, bx, mv_y, mv_x, has_coeff, is_intra: bool,
         raise ValueError(f"no motion-compensation kernel for device {res.device}")
     from pfv_torch.kernels import build
 
-    lib = build.lib()
     n = res.shape[0]
     if n:
-        rc = lib.pfv_mc_reconstruct(
-            res.data_ptr(), ref.data_ptr(), ref.stride(0), ref.shape[0],
-            ref.shape[1], by.data_ptr(), bx.data_ptr(), mv_y.data_ptr(),
-            mv_x.data_ptr(), has_coeff.data_ptr(), int(bool(is_intra)),
-            out.data_ptr(), out.stride(0), n,
-            torch.cuda.current_stream(res.device).cuda_stream)
+        rc = build.launch(
+            "pfv_mc_reconstruct", res.device, res.data_ptr(), ref.data_ptr(),
+            ref.stride(0), ref.shape[0], ref.shape[1], by.data_ptr(), bx.data_ptr(),
+            mv_y.data_ptr(), mv_x.data_ptr(), has_coeff.data_ptr(), int(bool(is_intra)),
+            out.data_ptr(), out.stride(0), n)
         if rc:
             raise RuntimeError(f"motion-compensation kernel launch failed: "
                                f"CUDA error {rc}")
-        mc_reconstruct.launches += 1
+        build.count(mc_reconstruct)
     return out
 
 

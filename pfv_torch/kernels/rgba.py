@@ -41,17 +41,15 @@ def canvas_rgba(canvases, height: int, width: int, ly0: int,
         raise ValueError(f"no RGBA kernel for device {canvases.device}")
     from pfv_torch.kernels import build
 
-    lib = build.lib()
     nf, chh, cw = canvases.shape
     out = torch.empty((nf, height, width), dtype=torch.int32,
                       device=canvases.device)
     if nf:
-        rc = lib.pfv_canvas_rgba(
-            canvases.data_ptr(), out.data_ptr(), nf, chh, cw, height, width,
-            ly0, lc1, torch.cuda.current_stream(canvases.device).cuda_stream)
+        rc = build.launch("pfv_canvas_rgba", canvases.device, canvases.data_ptr(),
+                          out.data_ptr(), nf, chh, cw, height, width, ly0, lc1)
         if rc:
             raise RuntimeError(f"RGBA kernel launch failed: CUDA error {rc}")
-        canvas_rgba.launches += 1
+        build.count(canvas_rgba)
     return out.view(torch.uint32)
 
 

@@ -2,8 +2,8 @@
 
 `step_frames` decodes a whole clip into (F, chh, cw) u8 canvases of the
 fused layout (Y on top, U | V side by side below): one host call, one
-kernel launch per frame on the current stream; frame f reads canvas f-1 of
-the output it is writing. A CPU tensor goes to `step_frames_plain`, the
+kernel launch per frame on the tensors' device and its current stream; frame
+f reads canvas f-1 of the output it is writing. A CPU tensor goes to `step_frames_plain`, the
 same computation in plain PyTorch ops; a CUDA tensor launches the kernel or
 raises.
 """
@@ -64,15 +64,14 @@ def step_frames(units, coff, dy, dx, hc, ftype, qmul, chh: int, cw: int,
         raise ValueError(f"no step kernel for device {units.device}")
     from pfv_torch.kernels import build
 
-    lib = build.lib()
     frames = ftype.shape[0]
     out = torch.empty((frames, chh, cw), dtype=torch.uint8, device=units.device)
-    stream = torch.cuda.current_stream(units.device).cuda_stream
     ptrs = [t.data_ptr() for t in (units, coff, dy, dx, hc, ftype, qmul, out)]
-    rc = lib.pfv_step_clip(*ptrs, frames, chh, cw, gly, units.shape[1], stream)
+    rc = build.launch("pfv_step_clip", units.device, *ptrs, frames, chh, cw, gly,
+                      units.shape[1])
     if rc:
         raise RuntimeError(f"step kernel launch failed: CUDA error {rc}")
-    step_frames.launches += frames
+    build.count(step_frames, frames)
     return out
 
 

@@ -479,3 +479,86 @@ def test_frame_steps_exact_at_the_edges(cuda, name):
     for canv in outs:
         for p, r in zip(tdl.slice_yuv(g, canv), ref):
             assert np.array_equal(p.cpu().numpy(), r)
+
+
+# -- the loader's side stream, the list of devices -------------------------
+
+
+def _loader_clips():
+    """Ten clips of three geometries, in turn."""
+    return [synth.random_stream(w, h, f, seed=50 + i, keyframes=3)
+            for i, (w, h, f) in enumerate([(512, 384, 9), (1920, 1080, 4), (136, 90, 7)] * 3
+                                          + [(4112, 64, 6)])]
+
+
+@pytest.mark.parametrize("prefetch", [1, 3])
+def test_loader_on_the_card_equals_the_whole_clip_decode(cuda, prefetch):
+    """The uploads run on the worker's stream while the consumer's kernels
+    run: every clip must still equal its own decode, also when all results
+    are kept while later clips reuse the pinned buffer and the allocator."""
+    from pfv_torch import VideoDataLoader
+
+    datas = _loader_clips()
+    before = (step_frames.launches, canvas_rgba.launches)
+    got = list(VideoDataLoader(datas, prefetch=prefetch, device="cuda"))
+    torch.cuda.synchronize()
+    frames = sum(runtime.count_frames(d) for d in datas[:-1])
+    assert step_frames.launches - before[0] == frames  # the last clip is K3's or K4's
+    assert canvas_rgba.launches - before[1] == len(datas)
+    for g, d in zip(got, datas):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, tdl.decode_video_rgb(d, device="cuda"))
+
+
+def test_loader_early_exit_and_error_on_the_card(cuda):
+    from pfv_torch import VideoDataLoader
+
+    datas = _loader_clips()
+    it = iter(VideoDataLoader(datas, device="cuda"))
+    first = next(it)
+    it.close()
+    assert torch.equal(first, tdl.decode_video_rgb(datas[0], device="cuda"))
+    with pytest.raises(ValueError):
+        list(VideoDataLoader([datas[0], b"no stream, but bytes enough for a header"],
+                             device="cuda"))
+
+
+@pytest.mark.parametrize("devices", [["cuda"], ["cuda:0", "cuda:0"]])
+def test_stream_batch_and_gop_split_on_the_card(cuda, devices):
+    from pfv_torch.parallel import decode_stream_batch, decode_video_gops
+
+    parts = [split_packets(synth.random_stream(512, 384, 6, seed=70 + s, keyframes=3))
+             for s in range(4)]
+    datas = [synth.container(512, 384, parts[0][0]["qtables"], p) for _, p in parts]
+    shards, mean = decode_stream_batch(datas, devices)
+    per = len(datas) // len(devices)
+    ys = []
+    for d, shard in enumerate(shards):
+        for s in range(per):
+            ref = runtime.ref_decode(datas[d * per + s])[1:4]
+            ys.append(ref[0])
+            for p, r in zip(shard, ref):
+                assert np.array_equal(p[s].cpu().numpy(), r)
+    assert abs(float(mean) - np.stack(ys).astype(np.float64).mean()) < 0.5
+    rgb = decode_video_gops(datas[0], devices, want="rgb")
+    assert torch.equal(rgb, tdl.decode_video_rgb(datas[0], device="cuda"))
+
+
+def test_encode_video_gops_on_the_card_equals_encode_video(cuda):
+    from pfv_torch.encoding import encode_video_gops
+
+    planes = _clip(136, 90, 9)
+    want = encode_video(*planes, 30, 3, 3, device="cpu")
+    for devices in (["cuda"], ["cuda:0", "cuda:0"], ["cuda:0"] * 3):
+        assert encode_video_gops(*planes, 30, 3, 3, devices=devices) == want
+
+
+def test_kernels_launch_on_their_tensors_device(cuda):
+    """A tensor on the second card while the first is current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    data = synth.random_stream(512, 384, 5, seed=80, keyframes=3)
+    assert torch.cuda.current_device() == 0
+    got = tdl.decode_video_rgb(data, device="cuda:1")
+    assert got.device == torch.device("cuda", 1)
+    assert torch.equal(got.cpu(), tdl.decode_video_rgb(data, device="cuda:0").cpu())

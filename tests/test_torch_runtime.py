@@ -2,7 +2,8 @@
 (`pfv_torch.runtime`) against the JAX package's (`pfv_tpu.runtime`).
 
 The port loads nothing of the JAX package: a fresh interpreter that imports
-pfv_torch and uses its runtime has no module or shared library from
+every module of pfv_torch and uses its runtime, loader, chunked decode, GOP
+split and command-line tool has no module or shared library from
 pfv_tpu/ and neither jax nor pfv_tpu in sys.modules. The copy's C++ source
 is the reference's line for line but for the comments of its header block,
 its Makefile byte for byte, and its demux forms, scalar decoder and
@@ -74,12 +75,19 @@ def test_port_loads_nothing_of_the_jax_package(streams, tmp_path):
     code = (
         "import os, sys\n"
         "import pfv_torch\n"
-        "from pfv_torch import dataloader, runtime\n"
+        "from pfv_torch import cli, dataloader, encoding, loader, parallel, runtime\n"
+        "from pfv_torch.parallel import devices, gops, streams\n"
+        "from pfv_torch.utils import profiling\n"
         f"data = open({str(path)!r}, 'rb').read()\n"
         "n, y, u, v, _ = runtime.ref_decode(data)\n"
         "host = dataloader.demux_host(data)\n"
         "packed = dataloader.demux_host_packed(data)\n"
         "assert n == 5 and host[2].size and packed[2].size\n"
+        f"cli.main(['verify', {str(path)!r}, '--device', 'cpu'])\n"
+        "assert len(loader.decode_many_rgb([data], device='cpu')[0]) == 5\n"
+        "assert len(list(dataloader.decode_video_rgb_chunks(data, 3, device='cpu'))) == 2\n"
+        "assert len(gops.decode_video_gops(data, ['cpu'] * 2)[0]) == 5\n"
+        "assert encoding.encode_video_gops and profiling.StageTimer and devices\n"
         f"ref = os.path.join({ROOT!r}, 'pfv_tpu') + os.sep\n"
         "files = [getattr(m, '__file__', None) or '' for m in list(sys.modules.values())]\n"
         "maps = open('/proc/self/maps').read().split('\\n')\n"
@@ -90,7 +98,9 @@ def test_port_loads_nothing_of_the_jax_package(streams, tmp_path):
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
-    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+    lines = proc.stdout.splitlines()  # the tool's verdict, then the script's
+    assert proc.returncode == 0 and len(lines) == 2, proc.stderr
+    assert lines[0].startswith("OK: 5 frames") and lines[1] == "ok"
 
 
 def _equal(a, b):
