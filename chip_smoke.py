@@ -58,22 +58,32 @@ from the repository root. Phases, one line each:
      the motion search's vectors and flags, and on that P-frame with random
      vectors that leave every plane, random flags and U and V on different
      q-tables; and its per-plane entry fdct_blocks on the same frames' blocks
-     and the search's winning windows;
+     and the search's winning windows; then K8 (the motion search of a
+     P-frame's three planes in one launch) against its plain version, every
+     vector and flag equal, at the skip thresholds of qualities 0 and 10: on
+     the first P-frame of each corpus's source against the in-loop
+     reconstruction of its first frame, on a 1080p frame of random noise, on
+     a flat frame and on a frame equal to the previous one (every candidate
+     ties: every vector 0), on single planes 16x16, 16x64 and 64x16 and on
+     the planes of an 18x10 frame (one macroblock high or wide: only the
+     centre, or one axis, is in the plane);
  12. drive encode_video (quality 2, a keyframe every 60, as the corpora
      were written) over the three sources and check each output's sha256
      against the committed corpus, which the JAX package's encoder wrote;
      check the launch counts of that run: K6 and the in-loop frame step once
-     per frame encoded, K6's per-plane entry, K1, K2, K5 and K7 never;
+     per frame encoded, K8 once per P-frame, K6's per-plane entry, K1, K2,
+     K5 and K7 never;
  13. drive the streaming Encoder over the 512x384 source and the first GOP
      of the 1080p pan: its bytes equal encode_video's, and the scalar
      reference decoder's frames of the 512x384 output equal the Encoder's
      own in-loop reconstruction; launch counts as in 12;
  14. time K6 per 1080p frame, an I-frame and a P-frame (CUDA events around
      one wrapped call, 100 calls back to back, the profiler's device time,
-     the plain version alternating), encode_video's frames/s per corpus,
-     each layer of a whole 1080p encode (source H2D, motion search, K6,
-     the in-loop frame step, compaction and D2H, host mux; each
-     synchronized) and
+     the plain version alternating) and K8 per 1080p P-frame of both 1080p
+     sources in the same way, encode_video's frames/s per corpus,
+     each layer of a whole 1080p encode (source H2D, the padding on the
+     device, K8, K6, the in-loop frame step, compaction and D2H, host mux;
+     each synchronized) and
      the device's busy share of a whole 1080p encode (profiler);
  15. hold K3 (dense whole-clip step) and K4 (dense frame step, batched over
      GOPs) against their plain versions on the card, on the inputs the dense
@@ -111,7 +121,7 @@ from the repository root. Phases, one line each:
      list entry and on two;
  21. drive encode_video_gops of the 512x384 source over the same list:
      sha256 equal to the committed corpus, K6 and the frame step once per
-     frame; its time beside encode_video's;
+     frame, K8 once per P-frame; its time beside encode_video's;
  22. drive the command-line tool in-process (info, verify, bench --runs 3
      on the 512x384 corpus; encode --synth 8, then decode to a temporary
      .npy held to the reference decoder).
@@ -126,7 +136,7 @@ inputs of the timed call (counted from the CUDA sources: see the *_OPS
 constants), at the card's issue rate from its SM count and top SM clock
 (nvidia-smi): one warp instruction per clock in each of an SM's four
 partitions, 128 lanes per SM, ~33.5 T op/s on an H100 SXM, for the integer
-kernels (K1, K3-K7, the frame step; nvcc issues integer adds and shifts on
+kernels (K1, K3-K8, the frame step; nvcc puts integer adds and shifts on
 the INT32 pipe
 and, as IMAD, on the FMA pipe); twice that for K2's float math (a fused
 multiply-add is two operations, 67 T/s). Both sides are printed. The line
@@ -183,11 +193,18 @@ RATES = {}
 # 4 pixels); an intra row is a copy. K1 per unit word: sign-extend the
 # value, split row and lane, the shared atomic add. K7 per pixel of a coded
 # block: offset, double, add, two clamps. K2 per pixel: colour conversion
-# and packing, float32.
+# and packing, float32. K8 (motion_kernel.cu): what the search itself needs per
+# 16 pixels of a candidate whose error is summed, whatever the kernel's form:
+# four byte-wise differences of four pixels (__vabsdiffu4), four dot products
+# that square and add them (__dp4a), one add into the candidate's sum. The
+# kernel's body runs about 42 instructions there (positions, edge tests,
+# addresses, shared loads, word selects, funnel shifts, the redux, the score):
+# that is where its time goes, and no part of its bound.
 DCT8_OPS = 36 + 3 * 12 + 6
 IDCT_OPS = 1 + 2 * DCT8_OPS / 8 + 5
 FDCT_OPS = 4 + 2 * DCT8_OPS / 8 + 8
 SHIFT_OPS, SELECT_OPS, UNIT_OPS, MC_OPS, RGBA_OPS = 4, 24, 4, 5, 15
+SEARCH_OPS = 4 + 4 + 1
 # the corpora's sources: width, height, frames, generator (bench.py CONFIGS)
 SOURCES = {
     "512x384": (512, 384, 161, "std"),
@@ -355,12 +372,14 @@ def counts():
     from pfv_torch.kernels.frame_step import FrameStep
     from pfv_torch.kernels.idct import decode_blocks
     from pfv_torch.kernels.mc import mc_reconstruct
+    from pfv_torch.kernels.motion import MotionSearch
     from pfv_torch.kernels.rgba import canvas_rgba
     from pfv_torch.kernels.step import step_frames
 
     return {"K1": step_frames, "K2": canvas_rgba, "K3": seq_frames_dense,
             "K4": step_gops, "K5": decode_blocks, "K6": FrameEncode,
-            "K6 per plane": fdct_blocks, "K7": mc_reconstruct, "FS": FrameStep}
+            "K6 per plane": fdct_blocks, "K7": mc_reconstruct, "K8": MotionSearch,
+            "FS": FrameStep}
 
 
 def zero_counts() -> None:
@@ -486,6 +505,58 @@ def frame_encode_vs_plain(step, sources, motion, qidx, prev) -> int:
     return max_abs_err(got, want)
 
 
+def search_vs_plain(layout, sources, prev, min_err):
+    """The motion search on the card against its plain version on the same
+    inputs, each into header rows filled with 7 -> (the largest absolute
+    difference over mvy, mvx and has_coeff, the kernel's rows)."""
+    from pfv_torch.kernels.motion import MotionSearch, motion_search_plain
+
+    search = MotionSearch(layout, min_err, prev.device)
+    got, want = ([torch.full((search.blocks,), 7, dtype=d, device=prev.device)
+                  for d in (torch.int8, torch.int8, torch.uint8)] for _ in range(2))
+    search(sources, prev, got)
+    motion_search_plain(sources, prev, search.layout, min_err, want)
+    return max(max_abs_err(a, b) for a, b in zip(got, want)), got
+
+
+def least_candidates(layout) -> int:
+    """The candidates whose error a motion search of these planes sums
+    whatever the data, from the geometry alone: per block the first centre,
+    then at each of the four steps the ring's candidates whose window lies in
+    the plane while the centre stays at the block's origin (a step is at most
+    16, so a neighbour is out only past the plane's first or last block of a
+    row or column). A walk that moves away from an edge sums more, at most
+    1 + 4 * 8 per block."""
+    total = 0
+    for p in layout:
+        nby, nbx = p.h // 16, p.w // 16
+        total += nby * nbx + 4 * ((3 * nbx - 2) * (3 * nby - 2) - nby * nbx)
+    return total
+
+
+def motion_search_bound(g, candidates: int):
+    """Bound of the motion search on one frame of geometry g: the source
+    planes and the previous planes read once (1 B per pixel each), the 3 B
+    header of each block written; SEARCH_OPS per 16 pixels, 16 times, of
+    each candidate summed."""
+    return bound(2 * 256 * g.nb + 3 * g.nb, 16 * SEARCH_OPS * candidates)
+
+
+def first_pframe(name, srcs, dev):
+    """(A FrameEncoder that has encoded frame 0 of a corpus's source, frame
+    1's padded source planes on the card)."""
+    from pfv_torch.device import FrameEncoder, upload_padded
+    from pfv_torch.frame import geometry
+    from pfv_torch.ops.pframe import skip_threshold
+    from pfv_torch.ops.quant import derive_q_tables
+
+    g = geometry(*SOURCES[name][:2])
+    fe = FrameEncoder(g, derive_q_tables(QUALITY), skip_threshold(QUALITY), dev)
+    src0, src1 = (upload_padded(g, [p[t] for p in srcs[name]], dev) for t in (0, 1))
+    fe.iframe(src0, torch.empty((g.nb, 256), dtype=torch.int16, device=dev))
+    return fe, src1
+
+
 def synth_sources(pool):
     """The corpora's source frames as (Y, U, V) uint8 stacks, per corpus."""
     from pfv_torch import synth
@@ -530,13 +601,13 @@ def encode_layers(planes, w, h, dev):
     """One encode of a clip through encode_video's layers, each ending in a
     synchronize -> (bytes, ms per layer)."""
     from pfv_torch import runtime
-    from pfv_torch.device import INTER_Q, INTRA_Q, FrameEncoder
+    from pfv_torch.device import INTER_Q, INTRA_Q, FrameEncoder, pad_planes
     from pfv_torch.enc import container_header
     from pfv_torch.frame import geometry
     from pfv_torch.ops.pframe import skip_threshold
     from pfv_torch.ops.quant import derive_q_tables
 
-    ms = dict.fromkeys(("host pad", "source H2D", "motion search", "K6",
+    ms = dict.fromkeys(("source H2D", "device pad", "K8 motion search", "K6",
                         "in-loop frame step", "compaction+D2H", "host mux"), 0.0)
     clock = [time.perf_counter()]
 
@@ -548,17 +619,12 @@ def encode_layers(planes, w, h, dev):
 
     f = planes[0].shape[0]
     g = geometry(w, h)
-    shapes = ((g.ly0, g.lyw), (g.lc0, g.lcw), (g.lc0, g.lcw))
     qt_host = derive_q_tables(QUALITY)
-    padded = []
-    for p, s, c in zip(planes, shapes, (0, 128, 128)):
-        a = np.full((f, *s), c, dtype=np.uint8)
-        a[:, :p.shape[1], :p.shape[2]] = p
-        padded.append(a)
-    lap("host pad")
     enc = FrameEncoder(g, qt_host, skip_threshold(QUALITY), dev)
-    src = [torch.from_numpy(a).to(dev) for a in padded]
+    src = [torch.from_numpy(p).to(dev) for p in planes]
     lap("source H2D")
+    src = pad_planes(g, src)
+    lap("device pad")
     live = torch.empty((f, g.nb, 256), dtype=torch.int16, device=dev)
     mvx = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
     mvy = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
@@ -570,7 +636,7 @@ def encode_layers(planes, w, h, dev):
         motion = None if t % KEYFRAMES == 0 else (mvy[t], mvx[t], hc[t])
         if motion is not None:
             enc.search(cur, motion)
-            lap("motion search")
+            lap("K8 motion search")
         enc.transform(cur, motion, live[t])
         lap("K6")
         enc.reconstruct(live[t], motion)
@@ -1088,7 +1154,9 @@ def main() -> int:
     # phase 11: the sources, then K6 against its plain version
     from pfv_torch import encode_video
     from pfv_torch.device import (INTER_Q, INTRA_Q, FrameEncoder, iframe_encode_plane,
-                                  origins_for, pad_plane_host)
+                                  origins_for, padded_shapes, upload_padded)
+    from pfv_torch.kernels.frame_step import plane_layout
+    from pfv_torch.kernels.motion import MotionSearch, motion_search_plain
     from pfv_torch.kernels.fdct import fdct_blocks, fdct_blocks_plain, frame_encode_plain
     from pfv_torch.ops.blocks import plane_to_blocks
     from pfv_torch.ops.motion import motion_search
@@ -1102,9 +1170,8 @@ def main() -> int:
         f"{k} {tuple(v[0].shape)}" for k, v in srcs.items())
         + f" in {time.perf_counter() - t0:.1f} s ({card})")
     g = dl.geometry(1920, 1080)
-    shapes = (((g.ly0, g.lyw), 0), ((g.lc0, g.lcw), 128), ((g.lc0, g.lcw), 128))
-    src0, src1 = ([pad_plane_host(srcs["1080p"][i][t], *shape, clear, dev)
-                   for i, (shape, clear) in enumerate(shapes)] for t in (0, 1))
+    shapes = padded_shapes(g)
+    src0, src1 = (upload_padded(g, [p[t] for p in srcs["1080p"]], dev) for t in (0, 1))
     fe = FrameEncoder(g, derive_q_tables(QUALITY), skip_threshold(QUALITY), dev)
     k6_co = torch.empty((g.nb, 256), dtype=torch.int16, device=dev)
     headers = torch.zeros((3, g.nb), dtype=torch.int8, device=dev)
@@ -1126,7 +1193,7 @@ def main() -> int:
           "random flags), max_abs_err: " + ", ".join(f"{k}: {e}" for k, e in err_k6.items()))
     qt = {k: torch.from_numpy(v).to(dev) for k, v in derive_q_tables(QUALITY).items()}
     k6_in = {"intra": [], "delta": []}
-    for i, (shape, _) in enumerate(shapes):
+    for i, shape in enumerate(shapes):
         by, bx = origins_for(*shape, dev)
         qi, qp = qt["intra_l" if i == 0 else "intra_c"], qt["inter_l" if i == 0 else "inter_c"]
         _, recon = iframe_encode_plane(src0[i], qi, by, bx)
@@ -1142,6 +1209,41 @@ def main() -> int:
     err_k6 = max(err_k6.values())
     check(err_k6 == 0, "K6 disagrees with its plain version")
     del k6_in
+
+    # K8 against its plain version: name -> (layout, sources, previous canvas)
+    k8_in = {"1080p frame 1": (fe.motion.layout, src1, k6_prev)}
+    for name in ("1080p_pan", "512x384"):
+        fe_n, s1 = first_pframe(name, srcs, dev)
+        k8_in[f"{name} frame 1"] = (fe_n.motion.layout, s1, fe_n.prev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def noise(shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+
+    noisy = noise((g.chh, g.cw))
+    k8_in["1080p random noise"] = (fe.motion.layout, [noise(sh) for sh in shapes], noisy)
+    k8_in["1080p flat"] = (fe.motion.layout, [torch.full(sh, v, dtype=torch.uint8, device=dev)
+                                               for sh, v in zip(shapes, (90, 100, 110))],
+                           torch.full((g.chh, g.cw), 93, dtype=torch.uint8, device=dev))
+    k8_in["1080p equal to prev"] = (fe.motion.layout, canvas_planes(g, noisy), noisy)
+    for h, w in ((16, 16), (16, 64), (64, 16)):
+        k8_in[f"one plane {w}x{h}"] = (plane_layout(h, w), [noise((h, w))], noise((h, w)))
+    g18 = dl.geometry(18, 10)
+    k8_in["18x10"] = (canvas_layout(g18), [noise(sh) for sh in padded_shapes(g18)],
+                      noise((g18.chh, g18.cw)))
+    err_k8 = 0
+    for name, (layout, sources, prev) in k8_in.items():
+        for min_err in (0.0, 57600.0):  # qualities 0 and 10
+            e, (mvy, mvx, hc) = search_vs_plain(layout, sources, prev, min_err)
+            still = not bool(mvy.any()) and not bool(mvx.any())
+            print(f"phase 11 K8 (motion search) vs plain, {name}, min_err {min_err:.0f} "
+                  f"({mvy.shape[0]} blocks, {int(hc.sum())} coded, "
+                  f"{int(((mvy != 0) | (mvx != 0)).sum())} moved): max_abs_err {e}")
+            if "flat" in name or "equal" in name or name == "one plane 16x16":
+                check(still, f"K8 on {name}: a vector is not 0 where every candidate ties")
+            err_k8 = max(err_k8, e)
+    check(err_k8 == 0, "K8 disagrees with its plain version")
+    k8_in = {k.split()[0]: v for k, v in k8_in.items() if k.endswith("frame 1")}
 
     # phase 12: encode_video, the encode main path, against the JAX bytes
     zero_counts()
@@ -1163,6 +1265,9 @@ def main() -> int:
           f"{enc_frames})")
     check(enc_launches["K6"] == enc_launches["FS"] == enc_frames,
           "K6 and the frame step were not launched once per encoded frame")
+    enc_pframes = sum(v[2] - len(range(0, v[2], KEYFRAMES)) for v in SOURCES.values())
+    check(enc_launches["K8"] == enc_pframes,
+          f"K8 was not launched once per P-frame ({enc_pframes})")
     check(enc_launches["K1"] == enc_launches["K2"] == enc_launches["K5"]
           == enc_launches["K7"] == enc_launches["K6 per plane"] == 0,
           "the encoder launched K1, K2, K5, K7 or K6's per-plane entry")
@@ -1189,6 +1294,8 @@ def main() -> int:
           f"{n + KEYFRAMES})")
     check(st_launches["K6"] == st_launches["FS"] == n + KEYFRAMES,
           "the Encoder did not launch K6 and the frame step once per frame")
+    check(st_launches["K8"] == n - len(range(0, n, KEYFRAMES)) + KEYFRAMES - 1,
+          "the Encoder did not launch K8 once per P-frame")
     check(st_launches["K1"] == st_launches["K2"] == st_launches["K5"]
           == st_launches["K7"] == st_launches["K6 per plane"] == 0,
           "the Encoder launched K1, K2, K5, K7 or K6's per-plane entry")
@@ -1216,6 +1323,32 @@ def main() -> int:
         + (f"{k6_us[kind]:.2f} us" if k6_us[kind] else "not measured (no device time seen)")
         + f", bound {1e3 * bounds['K6'][kind][0]:.3f} us ({bounds['K6'][kind][1]})"
         for kind in k6_calls) + f" ({card})")
+    times["K8"], bounds["K8"] = {}, {}
+    for name in TIMED:
+        layout, sources, prev = k8_in[name]
+        search = MotionSearch(layout, skip_threshold(QUALITY), dev)
+        k8_rows = [torch.empty_like(t) for t in k6_motion]
+        search.check(sources, prev, k8_rows)
+
+        def k8_frame():
+            search.launch(sources, prev, k8_rows)
+
+        def k8_plain():
+            motion_search_plain(sources, prev, layout, search.min_err, k8_rows)
+
+        times["K8"][name] = paired_ms(k8_frame, k8_plain)
+        cands = least_candidates(layout)
+        bounds["K8"][name] = motion_search_bound(g, cands)
+        k8_run = timed_ms(lambda: [k8_frame() for _ in range(100)]) / 100
+        k8_us = 1e3 * device_ms(k8_frame, "motion_search_kernel", reps=10)
+        print(f"phase 14 K8 per 1080p P-frame, {name} frame 1 (Y, U and V in one call, "
+              f"{g.nb} blocks, at least {cands} candidates summed, {int(k8_rows[2].sum())} blocks "
+              f"coded): one wrapped call {times['K8'][name][0]:.4f} ms, 100 back to back "
+              f"{k8_run:.4f} ms per frame, plain {times['K8'][name][1]:.4f} ms, device time "
+              + (f"{k8_us:.2f} us" if k8_us else "not measured (no device time seen)")
+              + f", bound {1e3 * bounds['K8'][name][0]:.3f} us ({bounds['K8'][name][1]}; "
+              f"bytes {1e3 * bounds['K8'][name][2]:.3f}, operations "
+              f"{1e3 * bounds['K8'][name][3]:.3f}) ({card})")
     fps = {}
     for name, planes in srcs.items():
         runs = [host_ms(lambda: encode_video(*planes, FPS, QUALITY, KEYFRAMES,
@@ -1589,7 +1722,10 @@ def main() -> int:
     check(data == datas["512x384"], "encode_video_gops differs from the committed corpus")
     check(eg_launches["K6"] == eg_launches["FS"] == SOURCES["512x384"][2],
           "encode_video_gops did not launch K6 and the frame step once per frame")
-    check(all(v == 0 for k, v in eg_launches.items() if k not in ("K6", "FS")),
+    f512 = SOURCES["512x384"][2]
+    check(eg_launches["K8"] == f512 - len(range(0, f512, KEYFRAMES)),
+          "encode_video_gops did not launch K8 once per P-frame")
+    check(all(v == 0 for k, v in eg_launches.items() if k not in ("K6", "K8", "FS")),
           "encode_video_gops launched another kernel")
     eg = {}
     for label, fn in (("encode_video", lambda: encode_video(
@@ -1638,7 +1774,7 @@ def main() -> int:
     check(text["verify"].startswith(f"OK: {n512} frames"), "pfv-torch verify failed")
     check(text["bench"].count("RUN ") == 3, "pfv-torch bench did not print 3 runs")
     check(cli_launches["K1"] == 4 * n512 + 8 and cli_launches["K2"] == 4
-          and cli_launches["K6"] == cli_launches["FS"] == 8,
+          and cli_launches["K6"] == cli_launches["FS"] == 8 and cli_launches["K8"] == 7,
           "the tool's launch counts are off")
     main_runs = {3: launches, 8: dec_launches, 9: fb_launches, 12: enc_launches,
                  13: st_launches, 16: dense_launches, 18: ld_launches, 19: ch_launches,
@@ -1679,6 +1815,10 @@ def main() -> int:
         kernel_entry("mc_reconstruct", "pfv_torch/csrc/mc_kernel.cu",
                      "pfv_tpu/ops/pallas/mc_kernel.py:31", total("K7"), err_k7,
                      times["K7"], bounds["K7"]),
+        # XLA in the JAX package, no Pallas kernel
+        kernel_entry("motion_search", "pfv_torch/csrc/motion_kernel.cu",
+                     "pfv_tpu/ops/motion.py:170", total("K8"), err_k8,
+                     times["K8"][TIMED[0]], bounds["K8"][TIMED[0]]),
         # K5 + K7 as one kernel
         dict(kernel_entry("frame_step", "pfv_torch/csrc/frame_step_kernel.cu",
                           "pfv_tpu/ops/pallas/idct_kernel.py:59",
@@ -1690,6 +1830,7 @@ def main() -> int:
                                                   ("K4", "512x384"), ("K4", "1080p"))] + [
         (k, bounds[k]) for k in ("K5", "K7")] + [
         (f"K6, 1080p {kind}-frame", b) for kind, b in bounds["K6"].items()] + [
+        (f"K8, {name} P-frame", b) for name, b in bounds["K8"].items()] + [
         ("frame step, 1080p P-frame", bounds["FS"])]
     for name, b in sides:
         print(f"bound {name}: {b[0]:.5f} ms ({b[1]}): bytes {b[2]:.5f} ms, operations "

@@ -11,11 +11,13 @@ and reconstruct it through the decode step.
 
 The encoders work a frame at a time, through a `FrameEncoder`: the
 reconstruction lives in two fused canvases that swap, and a frame costs, for
-a P-frame, three motion searches against views of the previous canvas, then
-one launch of the frame-encode step (kernels/fdct.py, K6: Y, U and V) and
-one of the frame step, which reconstructs the frame exactly as a decoder
-will. The reconstruction the next frame is predicted from never leaves the
-device.
+a P-frame, one launch of the motion search (kernels/motion.py, K8: Y, U and
+V against views of the previous canvas), then one launch of the frame-encode
+step (kernels/fdct.py, K6: Y, U and V) and one of the frame step, which
+reconstructs the frame exactly as a decoder will. The reconstruction the
+next frame is predicted from never leaves the device. The source planes go
+up as they come and are padded to whole macroblocks on the device
+(`upload_padded`).
 """
 
 from __future__ import annotations
@@ -26,13 +28,14 @@ import torch
 from pfv_torch.frame import Geometry, canvas_layout, canvas_planes
 from pfv_torch.kernels.fdct import FrameEncode
 from pfv_torch.kernels.frame_step import FrameStep, plane_layout
+from pfv_torch.kernels.motion import MotionSearch
 from pfv_torch.ops.blocks import block_origins, plane_to_blocks
 from pfv_torch.ops.iframe import encode_blocks_best
-from pfv_torch.ops.motion import motion_search
 from pfv_torch.ops.pframe import encode_plane_delta
 
 QT_KEYS = ("intra_l", "intra_c", "inter_l", "inter_c")  # the container's order
 INTRA_Q, INTER_Q = (0, 1, 1), (2, 3, 3)  # q-table indices of (Y, U, V)
+PLANE_CLEAR = (0, 128, 128)  # what pads (Y, U, V) to whole macroblocks
 
 
 def origins_for(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -96,8 +99,8 @@ def pframe_encode_plane(plane, ref_plane, q_table, min_err, by, bx):
 class FrameEncoder:
     """Encodes one frame at a time on `device` and reconstructs it in the
     loop, in three steps that can be timed apart: `search` (the motion
-    search of a P-frame, plain PyTorch), `transform` (the frame-encode step,
-    one launch for Y, U and V) and `reconstruct` (the frame step, one
+    search of a P-frame, one launch for Y, U and V), `transform` (the
+    frame-encode step, one launch) and `reconstruct` (the frame step, one
     launch, then the canvases swap); `iframe` and `pframe` run them in
     order.
 
@@ -116,8 +119,8 @@ class FrameEncoder:
         layout = canvas_layout(g)
         self.encode = FrameEncode(qt, layout, device)
         self.step = FrameStep(qt, layout, device)
+        self.motion = MotionSearch(layout, self.min_err, device)
         self.device = self.step.device
-        self._origins = [origins_for(p.h, p.w, self.device) for p in self.step.layout]
         # the reconstructed previous frame (Y 0, U and V 128 before the
         # first), and the canvas the next frame is reconstructed into
         self.prev = torch.zeros((g.chh, g.cw), dtype=torch.uint8, device=self.device)
@@ -126,7 +129,8 @@ class FrameEncoder:
 
     def check(self, sources, coeffs, motion) -> None:
         """Raise ValueError unless the buffers of a P-frame (and so of an
-        I-frame) fit both kernels."""
+        I-frame) fit the three kernels."""
+        self.motion.check(sources, self.prev, motion)
         self.encode.check(sources, motion, INTER_Q, self.prev, coeffs)
         self.step.check(coeffs, motion, INTER_Q, self.prev, self.back)
 
@@ -136,16 +140,10 @@ class FrameEncoder:
         return canvas_planes(self.g, self.prev)
 
     def search(self, sources, motion) -> None:
-        """The motion search of each plane against the previous
+        """K8: the motion search of every plane against the previous
         reconstruction: the winners' vectors and the coded flags (best SSD
         above min_err, in float32) into `motion`."""
-        mvy, mvx, hc = motion
-        for p, src, ref, (by, bx) in zip(self.step.layout, sources, self.planes(),
-                                         self._origins):
-            sl = slice(p.first, p.first + p.blocks)
-            mx, my, err, _ = motion_search(plane_to_blocks(src), ref, by, bx)
-            mvx[sl], mvy[sl] = mx, my
-            hc[sl] = err.to(torch.float32) > self.min_err
+        self.motion.launch(sources, self.prev, motion)
 
     def transform(self, sources, motion, coeffs) -> None:
         """K6: the frame's coefficients into `coeffs`; motion None for an
@@ -176,11 +174,37 @@ def plane_mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean(d * d)
 
 
-def pad_plane_host(plane: np.ndarray, pad_h: int, pad_w: int, clear: int,
-                   device) -> torch.Tensor:
-    """An unpadded host plane padded to (pad_h, pad_w) with `clear`, as a
-    tensor on `device`."""
-    h, w = plane.shape
-    out = np.full((pad_h, pad_w), clear, dtype=np.uint8)
-    out[:h, :w] = plane
-    return torch.from_numpy(out).to(device)
+def padded_shapes(g: Geometry) -> tuple[tuple[int, int], ...]:
+    """The padded (rows, columns) of the (Y, U, V) planes."""
+    return (g.ly0, g.lyw), (g.lc0, g.lcw), (g.lc0, g.lcw)
+
+
+def pad_planes(g: Geometry, planes, out=None) -> list[torch.Tensor]:
+    """Unpadded (Y, U, V) u8 planes (..., h, w) on a device -> the planes
+    padded to whole macroblocks on that device, Y with 0, U and V with 128:
+    plain tensor copies. A plane that needs no padding is returned as it
+    is. out: three padded planes whose padding holds the clear value
+    already; then a plane that needs padding is copied into its own.
+    `planes` may be an iterator: each plane is let go once it is copied."""
+    res = []
+    for i, (p, (ph, pw), clear) in enumerate(zip(planes, padded_shapes(g), PLANE_CLEAR)):
+        if p.dtype != torch.uint8:
+            raise ValueError(f"plane {i} must be uint8, not {p.dtype}")
+        h, w = p.shape[-2:]
+        if (h, w) == (ph, pw):
+            res.append(p)
+            continue
+        dst = out[i] if out is not None else torch.full(
+            (*p.shape[:-2], ph, pw), clear, dtype=torch.uint8, device=p.device)
+        dst[..., :h, :w] = p
+        res.append(dst)
+    return res
+
+
+def upload_padded(g: Geometry, planes, device, out=None) -> list[torch.Tensor]:
+    """Unpadded (Y, U, V) host planes (..., h, w) -> padded u8 planes on
+    `device`: each plane goes up as it comes, one copy, and is padded there
+    (`pad_planes`) before the next goes up, so the card holds one unpadded
+    plane at a time. A plane of another type than uint8 is refused."""
+    up = (torch.from_numpy(np.ascontiguousarray(p)).to(device) for p in planes)
+    return pad_planes(g, up, out)

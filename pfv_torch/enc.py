@@ -1,7 +1,9 @@
 """The streaming PFV Encoder on one device (counterpart of pfv_tpu/enc.py).
 
-Per frame, the three padded planes go to the device and through a
-`device.FrameEncoder`: for a P-frame the motion search of each plane, then
+Per frame, the three planes go to the device as they come, are padded to
+whole macroblocks there, in three device planes the Encoder keeps, and go
+through a `device.FrameEncoder`: for a P-frame one launch of kernel K8 (the
+motion search of Y, U and V against the previous reconstruction), then
 one launch of kernel K6 (the frame-encode step: forward DCT + quantization
 of Y, U and V, prediction windows read from the previous reconstruction)
 and one launch of the frame step, which reconstructs the frame in the loop
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 from pfv_torch import runtime
-from pfv_torch.device import INTER_Q, INTRA_Q, FrameEncoder, pad_plane_host, plane_mse
+from pfv_torch.device import (INTER_Q, INTRA_Q, PLANE_CLEAR, FrameEncoder, padded_shapes,
+                              plane_mse, upload_padded)
 from pfv_torch.frame import VideoFrame, geometry
 from pfv_torch.ops.pframe import skip_threshold
 from pfv_torch.ops.quant import derive_q_tables
@@ -47,7 +50,7 @@ class Encoder:
     """Streaming PFV encoder writing to `writer`, encoding on `device`.
 
     Writes the container header on construction. `num_threads` is accepted
-    for API parity and ignored: a frame is two kernel launches.
+    for API parity and ignored: a frame is two or three kernel launches.
     """
 
     def __init__(self, writer: BinaryIO, width: int, height: int, framerate: int,
@@ -70,9 +73,11 @@ class Encoder:
 
         self._qt_host = derive_q_tables(quality)
         g = geometry(width, height)
-        self._shapes = {"y": (g.ly0, g.lyw), "u": (g.lc0, g.lcw), "v": (g.lc0, g.lcw)}
-        self._clear = {"y": 0, "u": 128, "v": 128}
         self._frames = FrameEncoder(g, self._qt_host, skip_threshold(quality), self.device)
+        # the padded source planes of the frame in hand; the padding is
+        # written here, once
+        self._padded = [torch.full(shape, clear, dtype=torch.uint8, device=self.device)
+                        for shape, clear in zip(padded_shapes(g), PLANE_CLEAR)]
         # a frame's coefficients and block headers (mvy, mvx, has_coeff)
         self._coeffs = torch.empty((g.nb, 256), dtype=torch.int16, device=self.device)
         headers = torch.zeros((3, g.nb), dtype=torch.int8, device=self.device)
@@ -103,8 +108,8 @@ class Encoder:
             raise ValueError(f"frame {frame.width}x{frame.height} with planes "
                              f"{[np.shape(planes[k]) for k in PLANES]} does not fit "
                              f"the encoder's {w}x{h}")
-        src = [pad_plane_host(np.asarray(planes[k]), *self._shapes[k], self._clear[k],
-                              self.device) for k in PLANES]
+        src = upload_padded(self._frames.g, [planes[k] for k in PLANES], self.device,
+                            self._padded)
         self._frames.check(src, self._coeffs, self._motion)
         return src
 

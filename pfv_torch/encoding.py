@@ -2,10 +2,12 @@
 then the host mux (counterpart of pfv_tpu/encoding.py `encode_video` and
 `encode_video_gops`).
 
-The frames go to the device in one upload. Each frame is encoded as the
-streaming Encoder does, through a `device.FrameEncoder` (motion search, one
-launch of K6, one of the in-loop frame step); K6 writes its coefficients,
-zeros in skipped blocks, straight into one (F, nb, 256) int16 buffer. One
+The planes go to the device as they come, one copy each, and are padded to
+whole macroblocks there. Each frame is encoded as the streaming Encoder
+does, through a `device.FrameEncoder` (for a P-frame one launch of K8, the
+motion search; one of K6, one of the in-loop frame step); K6 writes its
+coefficients, zeros in skipped blocks, straight into one (F, nb, 256) int16
+buffer. One
 `torch.nonzero` compacts the clip (the JAX package needs a counting pass
 and a guessed cap for this: XLA has no data-dependent shapes), one copy
 brings the nonzeros and the block headers to the host, and the shared C++
@@ -25,21 +27,12 @@ import torch
 
 from pfv_torch import runtime
 from pfv_torch.dec import balanced_bounds
-from pfv_torch.device import INTER_Q, INTRA_Q, FrameEncoder
+from pfv_torch.device import INTER_Q, INTRA_Q, FrameEncoder, upload_padded
 from pfv_torch.enc import container_header
 from pfv_torch.frame import geometry
 from pfv_torch.ops.pframe import skip_threshold
 from pfv_torch.ops.quant import derive_q_tables
 from pfv_torch.parallel.devices import as_devices
-
-
-def _pad_frames(frames: np.ndarray, ph: int, pw: int, clear: int) -> np.ndarray:
-    f, h, w = frames.shape
-    if (h, w) == (ph, pw):
-        return np.ascontiguousarray(frames)
-    out = np.full((f, ph, pw), clear, dtype=np.uint8)
-    out[:, :h, :w] = frames
-    return out
 
 
 def _keyframe_mask(keyframes, f: int) -> np.ndarray:
@@ -61,13 +54,6 @@ def _check_planes(y, u, v) -> None:
     if u.shape != (f, h // 2, w // 2) or v.shape != u.shape:
         raise ValueError(f"chroma planes must be (F, H/2, W/2); got {u.shape} / "
                          f"{v.shape} for luma {y.shape}")
-
-
-def _padded_planes(g, y, u, v) -> list[np.ndarray]:
-    """The clip's planes padded to whole macroblocks: Y with 0, U and V
-    with 128."""
-    shapes, clear = ((g.ly0, g.lyw), (g.lc0, g.lcw), (g.lc0, g.lcw)), (0, 128, 128)
-    return [_pad_frames(p, *s, c) for p, s, c in zip((y, u, v), shapes, clear)]
 
 
 def _encode_frames(enc: FrameEncoder, src, is_key):
@@ -145,10 +131,9 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
     g = geometry(w, h)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
-    padded = _padded_planes(g, y, u, v)
     with stage("h2d upload"):
         enc = FrameEncoder(g, qt_host, skip_threshold(quality), dev)
-        src = [torch.from_numpy(p).to(dev) for p in padded]
+        src = upload_padded(g, (y, u, v), dev)
         sync()
 
     with stage("device encode"):
@@ -182,11 +167,10 @@ def encode_video_gops(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: in
     starts = np.flatnonzero(is_key).tolist()
     devices = devices[:len(starts)]
     bounds = [*balanced_bounds(starts, f, len(devices)), f]
-    padded = _padded_planes(g, y, u, v)
     runs = []
     for dev, a, b in zip(devices, bounds, bounds[1:]):
         enc = FrameEncoder(g, qt_host, skip_threshold(quality), dev)
-        src = [torch.from_numpy(p[a:b]).to(dev) for p in padded]
+        src = upload_padded(g, [p[a:b] for p in (y, u, v)], dev)
         runs.append(_encode_frames(enc, src, is_key[a:b]))
     runs = [[t.cpu().numpy() for t in _compact(*run)] for run in runs]
     coded = [np.concatenate(part) for part in zip(*runs)]

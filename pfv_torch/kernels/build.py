@@ -100,6 +100,9 @@ def lib() -> ctypes.CDLL:
             so.pfv_frame_encode.restype = i
             so.pfv_frame_step.argtypes = [p] * 4 + [i, p, i, i, i, p, ll, p, ll, p, i, p]
             so.pfv_frame_step.restype = i
+            so.pfv_motion_search.argtypes = ([p] * 3 + [ll] * 3 + [p, ll, p, p, p,
+                                                                  ctypes.c_float, p, i, p])
+            so.pfv_motion_search.restype = i
             _lib = so
         return _lib
 

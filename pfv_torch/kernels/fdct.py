@@ -33,8 +33,8 @@ import numpy as np
 import torch
 
 from pfv_torch.kernels.frame_step import (ALIGN, MAX_PLANES, _extent, _ptr,
-                                          checked_layout)
-from pfv_torch.ops.blocks import block_origins, plane_to_blocks
+                                          checked_layout, plane_origins)
+from pfv_torch.ops.blocks import plane_to_blocks
 from pfv_torch.ops.iframe import encode_blocks as encode_blocks_plain
 from pfv_torch.ops.motion import gather_predictions
 from pfv_torch.ops.pframe import calc_residuals, encode_delta_blocks
@@ -66,6 +66,8 @@ def frame_encode_plain(sources, motion, qtables, qidx, layout, prev, out,
     has_coeff. qtables (nq, 64) int32; layout: `PlaneAt`s; origins: per
     plane the raster (by, bx) int32 origins, made here when not given.
     Returns out."""
+    if origins is None and motion is not None:
+        origins = plane_origins(layout, prev.device)
     for i, (p, qi, src) in enumerate(zip(layout, qidx, sources)):
         n = p.blocks
         sl = slice(p.first, p.first + n)
@@ -74,8 +76,7 @@ def frame_encode_plain(sources, motion, qtables, qidx, layout, prev, out,
         if motion is None:
             out[sl] = fdct_blocks_plain(blocks, q).view(n, 256)
             continue
-        by, bx = (origins[i] if origins is not None else
-                  (torch.from_numpy(o).to(src.device) for o in block_origins(p.h, p.w)))
+        by, bx = origins[i]
         mvy, mvx, hc = (t[sl] for t in motion)
         win = gather_predictions(p.view(prev), by, bx, mvy, mvx)
         torch.mul(fdct_blocks_plain(blocks, q, win).view(n, 256), (hc != 0)[:, None],
@@ -192,8 +193,7 @@ class FrameEncode:
 
     def _plain_origins(self):
         if self._origins is None:
-            self._origins = [tuple(torch.from_numpy(o) for o in block_origins(p.h, p.w))
-                             for p in self.layout]
+            self._origins = plane_origins(self.layout)
         return self._origins
 
 

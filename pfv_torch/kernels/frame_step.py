@@ -59,6 +59,13 @@ def plane_layout(h: int, w: int) -> tuple[PlaneAt]:
     return (PlaneAt(0, 0, 0, h, w),)
 
 
+def plane_origins(layout, device="cpu") -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Per plane of a layout the raster (by, bx) int32 origins of its blocks,
+    on `device`: what the plain versions index with."""
+    return [tuple(torch.from_numpy(o).to(device) for o in block_origins(p.h, p.w))
+            for p in layout]
+
+
 def checked_layout(layout) -> tuple[PlaneAt, ...]:
     """The layout as `PlaneAt`s; raises ValueError unless it is 1 to
     MAX_PLANES planes of whole 16x16 blocks at 16-byte aligned columns."""
@@ -194,8 +201,7 @@ class FrameStep:
 
     def _plain_origins(self):
         if self._origins is None:
-            self._origins = [tuple(torch.from_numpy(o) for o in block_origins(p.h, p.w))
-                             for p in self.layout]
+            self._origins = plane_origins(self.layout)
         return self._origins
 
 
@@ -205,11 +211,11 @@ def frame_step_plain(coeffs, motion, qtables, qidx, layout, prev, out,
     version on its blocks, then K7's, which places them in `out`. qtables
     (nq, 64) int32; layout: `PlaneAt`s; origins: per plane the raster (by,
     bx) int32 origins, made here when not given. Returns out."""
-    for i, (p, qi) in enumerate(zip(layout, qidx)):
+    if origins is None:
+        origins = plane_origins(layout, coeffs.device)
+    for p, qi, (by, bx) in zip(layout, qidx, origins):
         n = p.blocks
         sl = slice(p.first, p.first + n)
-        by, bx = (origins[i] if origins is not None else
-                  (torch.from_numpy(o).to(coeffs.device) for o in block_origins(p.h, p.w)))
         res = decode_blocks_plain(coeffs[sl].view(n, 4, 64),
                                   qtables[int(qi)].to(coeffs.device))
         o = p.view(out)

@@ -27,9 +27,10 @@ from pfv_torch.kernels.dense_step import (seq_frames_dense, seq_frames_dense_pla
                                           step_gops_plain)
 from pfv_torch.frame import canvas_layout, canvas_planes
 from pfv_torch.kernels.fdct import FrameEncode, fdct_blocks, fdct_blocks_plain
-from pfv_torch.kernels.frame_step import FrameStep
+from pfv_torch.kernels.frame_step import FrameStep, plane_layout
 from pfv_torch.kernels.idct import decode_blocks, decode_blocks_plain
 from pfv_torch.kernels.mc import mc_reconstruct, mc_reconstruct_plain
+from pfv_torch.kernels.motion import MotionSearch, motion_search_plain
 from pfv_torch.kernels.rgba import canvas_rgba, canvas_rgba_plain
 from pfv_torch.kernels.step import step_frames, step_frames_plain
 from pfv_torch.ops.blocks import block_origins
@@ -98,6 +99,15 @@ def test_kernels_raise_on_mixed_devices(cuda):
     g, args = tdl.upload(tdl.demux_host(data), cuda)
     with pytest.raises(ValueError):
         step_frames(args[0], args[1].cpu(), *args[2:], g.chh, g.cw, g.gly)
+    # K8: a source, the canvas or a header row on the host
+    g = tdl.geometry(64, 48)
+    src, motion, _, prev = _frame_encode_inputs(g, 1, False, cuda)
+    search = MotionSearch(canvas_layout(g), 0.0, cuda)
+    search(src, prev, motion)
+    for bad in (([src[0].cpu(), *src[1:]], prev, motion), (src, prev.cpu(), motion),
+                (src, prev, (motion[0].cpu(), *motion[1:]))):
+        with pytest.raises(ValueError):
+            search(*bad)
 
 
 @pytest.mark.parametrize("n,lim,qmax", [(1, 800, 60), (300, 800, 60),
@@ -324,14 +334,84 @@ def test_frame_encode_raises_on_mixed_devices(cuda):
         step(src, motion, (0, 1, 1), prev, out.cpu())
 
 
+def _search_case(name, cuda):
+    """(layout, sources, previous canvas) on the card."""
+    rng = np.random.default_rng(len(name))
+
+    def noise(shape):
+        return rng.integers(0, 256, size=shape, dtype=np.uint8)
+
+    if name.startswith("plane"):
+        h, w = {"plane 16x16": (16, 16), "plane 16x64": (16, 64), "plane 64x16": (64, 16),
+                "plane 48x32": (32, 48), "plane 4112x32": (32, 4112)}[name]
+        layout, src, prev = plane_layout(h, w), [noise((h, w))], noise((h, w))
+    else:
+        w, h = {"frame 1920x1080": (1920, 1080), "frame 136x90": (136, 90),
+                "frame 18x10": (18, 10), "flat": (136, 90), "equal": (136, 90),
+                "near": (512, 384)}[name]
+        g = tdl.geometry(w, h)
+        layout, prev = canvas_layout(g), noise((g.chh, g.cw))
+        if name == "flat":
+            prev[:] = 93
+            src = [np.full((p[3], p[4]), v, np.uint8) for p, v in zip(layout, (90, 100, 110))]
+        elif name == "equal":
+            src = [p.copy() for p in canvas_planes(g, prev)]
+        elif name == "near":  # smooth planes moved by (-3, 2) plus a little noise
+            yy, xx = np.mgrid[:g.chh, :g.cw]
+            prev = (128 + 50 * np.sin(xx / 13.0) + 50 * np.sin(yy / 11.0 + xx / 29.0)
+                    + noise(yy.shape) % 5).astype(np.uint8)
+            src = [np.clip(np.roll(p, (-2, 3), axis=(0, 1)).astype(np.int32)
+                           + noise(p.shape) % 7 - 3, 0, 255).astype(np.uint8)
+                   for p in canvas_planes(g, prev)]
+        else:
+            src = [noise((p[3], p[4])) for p in layout]
+    return (layout, [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in src],
+            torch.from_numpy(prev).to(cuda))
+
+
+@pytest.mark.parametrize("min_err", [0.0, 2304.0, 57600.0])
+@pytest.mark.parametrize("name", ["plane 16x16", "plane 16x64", "plane 64x16", "plane 48x32",
+                                  "plane 4112x32", "frame 1920x1080", "frame 136x90",
+                                  "frame 18x10", "flat", "equal", "near"])
+def test_motion_search_kernel_matches_plain(cuda, name, min_err):
+    layout, src, prev = _search_case(name, cuda)
+    search = MotionSearch(layout, min_err, cuda)
+    got, want = ([torch.full((search.blocks + 3,), 7, dtype=d, device=cuda)
+                  for d in (torch.int8, torch.int8, torch.uint8)] for _ in range(2))
+    before = MotionSearch.launches
+    search(src, prev, got)
+    assert MotionSearch.launches - before == 1
+    motion_search_plain(src, prev, search.layout, min_err, want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    host = [torch.full_like(t, 7).cpu() for t in got]
+    MotionSearch(layout, min_err, "cpu")([t.cpu() for t in src], prev.cpu(), host)
+    for a, b in zip(got, host):
+        assert torch.equal(a.cpu(), b)
+    if name in ("flat", "equal", "plane 16x16"):  # every candidate ties, or is alone
+        assert not got[0][:search.blocks].any() and not got[1][:search.blocks].any()
+    if name == "near":
+        assert ((got[0] == 2) & (got[1] == -3)).float().mean() > 0.3
+    # the sources as views of one canvas, as strided as the previous one
+    if len(layout) == 3:
+        canvas = torch.empty_like(prev)
+        views = [canvas[p[1]:p[1] + p[3], p[2]:p[2] + p[4]] for p in layout]
+        for view, t in zip(views, src):
+            view.copy_(t)
+        again = [torch.full_like(t, 7) for t in got]
+        search(views, prev, again)
+        for a, b in zip(again, got):
+            assert torch.equal(a, b)
+
+
 def _clip(w, h, f):
     frames = [synth.synth_yuv_frame(t, w, h) for t in range(f)]
     return tuple(np.stack([p[i] for p in frames]) for i in range(3))
 
 
 def _encode_counters():
-    return (FrameEncode, FrameStep, fdct_blocks, decode_blocks, mc_reconstruct,
-            step_frames, canvas_rgba)
+    return (FrameEncode, FrameStep, MotionSearch, fdct_blocks, decode_blocks,
+            mc_reconstruct, step_frames, canvas_rgba)
 
 
 def test_encode_video_on_the_card_equals_the_cpu(cuda):
@@ -339,9 +419,10 @@ def test_encode_video_on_the_card_equals_the_cpu(cuda):
     y, u, v = _clip(w, h, f)
     before = [fn.launches for fn in _encode_counters()]
     got = encode_video(y, u, v, 30, 3, 4, device="cuda")
-    # K6 and the in-loop frame step once per frame, nothing else
+    # K6 and the in-loop frame step once per frame, K8 once per P-frame,
+    # nothing else
     assert [fn.launches - b for fn, b in zip(_encode_counters(), before)] \
-        == [f, f, 0, 0, 0, 0, 0]
+        == [f, f, f - 3, 0, 0, 0, 0, 0]
     assert got == encode_video(y, u, v, 30, 3, 4, device="cpu")
 
 
@@ -357,9 +438,9 @@ def test_encoder_on_the_card_equals_the_cpu(cuda):
                 frame = VideoFrame(w, h, y[t], u[t], v[t])
                 (enc.encode_iframe if t % 4 == 0 else enc.encode_pframe)(frame)
         outs[device] = buf.getvalue()
-        n = f if device == "cuda" else 0
+        n, p = (f, f - 3) if device == "cuda" else (0, 0)
         assert [fn.launches - b for fn, b in zip(_encode_counters(), before)] \
-            == [n, n, 0, 0, 0, 0, 0]
+            == [n, n, p, 0, 0, 0, 0, 0]
     assert outs["cuda"] == outs["cpu"] == encode_video(y, u, v, 30, 3, 4, device="cuda")
 
 
