@@ -11,7 +11,10 @@ from the repository root. Phases, one line each:
      on the edge streams of pfv_torch.synth (widths 528, 1936 and 4096,
      height 16, the longest vectors the planes allow, P-frames with no
      coded block and with all coded), also with random vectors of the
-     7-bit field's whole range that leave the canvas on every side; and K2
+     7-bit field's whole range that leave the canvas on every side, and on
+     the 1080p streams of phase 9 with per-frame tables (their own, and
+     random ones with U and V apart in every frame) from a starting canvas
+     (the reference framebuffer, a random one); and K2
      on random canvases that its vector path refuses in part or whole
      (width % 8 == 4, width % 4 != 0, odd width, odd height, a V column
      that is not 4-byte aligned);
@@ -38,19 +41,21 @@ from the repository root. Phases, one line each:
      on 1080p also decode_all and reset with a second pass; advance_delta on
      512x384) and check the launch counts of that run: the frame step once
      per frame decoded, K5 and K7 never, K1 once per frame of decode_all;
-  9. drive the whole-clip decode over three streams the frame steps' gates
-     refuse, built here with the port's runtime (1080p without its first
-     I-packet, 1080p with it re-encoded on q-table indices (0, 1, 3), a
+  9. drive the whole-clip decode over three streams the TPU kernels'
+     contracts refuse, built here with the port's runtime (1080p without its
+     first I-packet, 1080p with it re-encoded on q-table indices (0, 1, 3), a
      4112x64 random stream without its first I-packet): decode_video_yuv
      pixel-exact and decode_video_rgba byte-exact against the reference,
-     K1, K3, K4, K5 and K7 launched 0 times, the frame step once per frame;
+     K1 (1080p) or K3 (4112x64) once per frame, the frame step, K4, K5 and
+     K7 never;
  10. time the frame step per 1080p P-frame (CUDA events around the wrapper,
      one call and 100 back to back, the host's enqueue time, the profiler's
      device time, its plain version alternating) and, in the same call, K5
      and K7 per plane; each layer of a whole 1080p clip
      through the Decoder (host entropy decode, pinned H2D, frame step, D2H
-     of the frames) and its advance_frame loop, and the per-frame fallback
-     against the K1 path per 1080p clip (host clock, synchronized);
+     of the frames) and its advance_frame loop, and per 1080p clip the K1
+     path, K1 from the starting canvas (phase 9's first-P stream) and the
+     per-frame path on that stream (host clock, synchronized);
  11. rebuild the three corpora's source frames with pfv_torch.synth (no
      JAX), and hold K6 (the frame-encode step: forward DCT + quantization
      of a frame's three planes in one launch) against its plain version on
@@ -91,7 +96,10 @@ from the repository root. Phases, one line each:
      GOP form ((2, 60) at 1080p, (3, 60) at 512x384, 19 pad frames), step
      by step (one call on [:, l:l+1] views of the (G, L, ...) tensors) and
      whole; and
-     on the 4112x16 edge stream, also with random vectors;
+     on the 4112x16 edge stream, also with random vectors, and K4 with random
+     per-frame tables from random canvases; K3 with per-frame tables from a
+     starting canvas on phase 9's 4112x64 stream (exact against the reference
+     from the reference framebuffer);
  16. drive the dense routes: decode_video_yuv and decode_video_rgba of an
      8K UHD stream (7680x4320, 24 frames, a keyframe every 8: route
      "dense", K3) and of a 4112x64 stream with a keyframe every 4 (route
@@ -108,12 +116,17 @@ from the repository root. Phases, one line each:
      and a plain decode_video_rgb loop's rates over the same list (host
      clock, synchronized, median of 3), with the worker's read, demux and
      upload and the consumer's wait and decode per clip;
- 19. build a 48-frame 8K UHD stream (phase 16's packets twice), which the
-     gate F*64*row_span < 2^31 sends frame by frame, and drive
-     decode_video_rgb_chunks with a cap of 24: two chunks, each route
-     "dense", K3 once per frame, every pixel equal to K2's plain version of
-     the reference planes; its time beside the per-frame fallback on the
-     same bytes, and its peak device memory beside a 24-frame decode's;
+ 19. build two 48-frame 8K UHD streams, past a dense chunk's 24 frames
+     (phase 16's packets twice; its I-packet, then its P-packets over and
+     over), and drive decode_video_yuv and decode_video_rgba over both: the
+     dense route in two chunks, K3 once per frame, each chunk from the last
+     canvas of the one before, exact against the reference; then
+     decode_video_rgb_chunks with a cap of 24 (two runs, each route "dense"),
+     every pixel equal to K2's plain version of the reference planes; the
+     times of the whole-clip decode, the chunks and the per-frame path on the
+     same bytes, and the peak device memory of each beside a 24-frame
+     decode's (beyond it, the 48-frame decode may hold no more than its 48
+     canvases and the second chunk's uploaded tensors);
  20. drive decode_stream_batch of four 1080p streams and decode_video_gops
      of the 1080p corpus over the list ["cuda:0", "cuda:0"] (the one card
      twice: two threads, two streams), exact against the reference,
@@ -306,6 +319,26 @@ def random_vectors(maps, seed: int):
                             dtype=torch.int8) for _ in range(2)), hc)
 
 
+def random_tables(frames: int, seed: int, dev):
+    """(F, 3, 64) int32 dequant multipliers from four random q-tables of the
+    format's u16 range, frame by frame on random indices, U and V on
+    different tables in every frame."""
+    from pfv_torch.dataloader import frame_multipliers
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qt = torch.randint(1, 65536, (4, 64), generator=gen, device=dev, dtype=torch.int32)
+    y, u, dv = (torch.randint(lo, 4, (frames,), generator=gen, device=dev)
+                for lo in (0, 0, 1))
+    return frame_multipliers(qt, torch.stack([y, u, (u + dv) % 4], 1))
+
+
+def random_canvas(g, seed: int, dev, n: int = 0):
+    """A random (chh, cw) u8 canvas, or n of them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, ((n,) if n else ()) + (g.chh, g.cw), generator=gen,
+                         device=dev, dtype=torch.uint8)
+
+
 def unit_scan(args, g) -> tuple[int, int]:
     """(unit words K1's CTAs read, unit words of the tiles) for a clip: a
     CTA that needs the residual reads all of its tile's words."""
@@ -358,9 +391,9 @@ def gop_steps(g, per_step, qmul, out):
     prev = torch.zeros_like(out[:, 0])
     err = 0
     for l in range(out.shape[1]):
-        step_gops(*(t[:, l:l + 1] for t in per_step), qmul, g.chh, g.cw, g.gly,
-                  prev=prev, out=out[:, l:l + 1])
-        args = (prev, *(t[:, l] for t in per_step), qmul, g.chh, g.cw, g.gly)
+        step_gops(*(t[:, l:l + 1] for t in per_step), qmul[:, l:l + 1], g.chh, g.cw,
+                  g.gly, g.guw, prev=prev, out=out[:, l:l + 1])
+        args = (prev, *(t[:, l] for t in per_step), qmul[:, l], g.chh, g.cw, g.gly, g.guw)
         err = max(err, max_abs_err(out[:, l], step_frames_batched_plain(*args)))
         prev = out[:, l]
     return err
@@ -730,7 +763,7 @@ def main() -> int:
     from pfv_torch import runtime, synth
     from pfv_torch.dec import Decoder, FrameDecoder, frame_packets, split_packets
     from pfv_torch.device import plane_step
-    from pfv_torch.frame import canvas_layout, canvas_planes
+    from pfv_torch.frame import canvas_layout, canvas_planes, initial_canvas
     from pfv_torch.kernels import build
     from pfv_torch.kernels.frame_step import frame_step_plain
     from pfv_torch.kernels.idct import decode_blocks, decode_blocks_plain
@@ -766,11 +799,29 @@ def main() -> int:
 
     datas = {k: open(os.path.join(ROOT, p), "rb").read() for k, p in CORPORA.items()}
     refs = {k: runtime.ref_decode(d)[1:4] for k, d in datas.items()}
+    # the streams the TPU kernels' contracts refuse (phases 2, 9, 10, 15): a
+    # leading P-frame, q-table indices (0, 1, 3) (U != V) on the I-frame
+    info, packets = split_packets(datas["1080p"])
+    first_i = next(i for i, (t, _) in enumerate(packets) if t == 1)
+    g = dl.geometry(info["width"], info["height"])
+    coeffs, _ = runtime.decode_iframe_payload(packets[first_i][1], g.nb)
+    requant = list(packets)
+    requant[first_i] = (1, runtime.encode_iframe_payload(coeffs, (0, 1, 3)))
+    refused = {
+        "1080p_first_p": synth.container(g.width, g.height, info["qtables"],
+                                         packets[first_i + 1:]),
+        "1080p_q013": synth.container(g.width, g.height, info["qtables"], requant),
+    }
+    winfo, wpackets = split_packets(synth.random_stream(*FALLBACK_WIDE, seed=2,
+                                                        keyframes=4))
+    refused["4112x64_first_p"] = synth.container(*FALLBACK_WIDE[:2], winfo["qtables"],
+                                                  wpackets[1:])
+    refused_refs = {k: runtime.ref_decode(d)[1:4] for k, d in refused.items()}
     err_k1 = err_k2 = 0
     for name, data in datas.items():
         g, args = dl.upload(dl.demux_host(data), dev)
-        canv = step_frames(*args, g.chh, g.cw, g.gly)
-        e1 = max_abs_err(canv, step_frames_plain(*args, g.chh, g.cw, g.gly))
+        canv = step_frames(*args, g.chh, g.cw, g.gly, g.guw)
+        e1 = max_abs_err(canv, step_frames_plain(*args, g.chh, g.cw, g.gly, g.guw))
         geo = (g.height, g.width, g.ly0, g.lcw)
         e2 = max_abs_err(dl.rgba_view(canvas_rgba(canv, *geo)),
                          dl.rgba_view(canvas_rgba_plain(canv, *geo)))
@@ -784,7 +835,7 @@ def main() -> int:
         if route.kind != "units":
             continue
         g, args = dl.upload(route.host, dev)
-        dims = (g.chh, g.cw, g.gly)
+        dims = (g.chh, g.cw, g.gly, g.guw)
         canv = step_frames(*args, *dims)
         e1 = max_abs_err(canv, step_frames_plain(*args, *dims))
         exact = all((p.cpu().numpy() == r).all() for p, r in zip(
@@ -797,6 +848,25 @@ def main() -> int:
               f"ref_decode: {exact}; with random vectors in [-64, 63]: max_abs_err {ew}")
         check(exact, f"K1 on the edge stream {name} differs from ref_decode")
         err_k1 = max(err_k1, e1, ew)
+    # K1's per-frame tables and starting canvas: the 1080p streams without
+    # their first I-packet and on q-table indices (0, 1, 3), with their own
+    # tables from the reference framebuffer and with random tables (U != V in
+    # every frame) from a random canvas
+    for seed, name in enumerate(("1080p_first_p", "1080p_q013")):
+        g, args = dl.upload(dl.demux_host(refused[name]), dev)
+        dims = (g.chh, g.cw, g.gly, g.guw)
+        errs = {}
+        for label, q, start in (
+                ("own tables, reference framebuffer", args[6], initial_canvas(g, dev)),
+                ("random tables, random canvas", random_tables(args[5].shape[0], seed, dev),
+                 random_canvas(g, seed, dev))):
+            a = (*args[:6], q)
+            errs[label] = max_abs_err(step_frames(*a, *dims, start),
+                                      step_frames_plain(*a, *dims, start))
+        print(f"phase 2 K1 vs plain, per-frame tables and a starting canvas, {name} "
+              f"({args[5].shape[0]} frames, the first {'P' if args[5][0] == 2 else 'I'}): "
+              "max_abs_err " + ", ".join(f"{k} {v}" for k, v in errs.items()))
+        err_k1 = max(err_k1, *errs.values())
     canv = torch.randint(0, 256, (3, 160, 256), dtype=torch.uint8, device=dev,
                          generator=torch.Generator(device=dev).manual_seed(2))
     edges = {k: max_abs_err(dl.rgba_view(canvas_rgba(canv, *geo)),
@@ -845,7 +915,7 @@ def main() -> int:
     for name in TIMED:
         host = dl.demux_host(datas[name])
         g, args = dl.upload(host, dev)
-        dims = (g.chh, g.cw, g.gly)
+        dims = (g.chh, g.cw, g.gly, g.guw)
         times[("K1", name)] = paired_ms(lambda: step_frames(*args, *dims),
                                         lambda: step_frames_plain(*args, *dims))
         k1_dev = device_ms(lambda: step_frames(*args, *dims), "step_frame_kernel")
@@ -977,52 +1047,34 @@ def main() -> int:
     check(dec_launches["K5"] == dec_launches["K7"] == 0, "the Decoder launched K5 or K7")
     check(dec_launches["K1"] == bulk, "decode_all did not launch K1 once per frame")
 
-    # phase 9: streams K1's gates refuse go frame by frame through the frame
-    # step
-    info, packets = split_packets(datas["1080p"])
-    first_i = next(i for i, (t, _) in enumerate(packets) if t == 1)
-    g = dl.geometry(info["width"], info["height"])
-    coeffs, _ = runtime.decode_iframe_payload(packets[first_i][1], g.nb)
-    requant = list(packets)
-    requant[first_i] = (1, runtime.encode_iframe_payload(coeffs, (0, 1, 3)))
-    fallback = {
-        "1080p_first_p": synth.container(g.width, g.height, info["qtables"],
-                                         packets[first_i + 1:]),
-        "1080p_q013": synth.container(g.width, g.height, info["qtables"], requant),
-    }
-    winfo, wpackets = split_packets(synth.random_stream(*FALLBACK_WIDE, seed=2,
-                                                        keyframes=4))
-    fallback["4112x64_first_p"] = synth.container(*FALLBACK_WIDE[:2], winfo["qtables"],
-                                                  wpackets[1:])
-    fb_refs = {k: runtime.ref_decode(d)[1:4] for k, d in fallback.items()}
-    gates = {k: dl.choose_route(d).gate for k, d in fallback.items()}
+    # phase 9: those streams through the whole-clip decode, on K1 or K3
+    routes9 = {k: dl.choose_route(d) for k, d in refused.items()}
     zero_counts()
-    fb_frames = 0
-    for name, data in fallback.items():
-        check(gates[name] is not None, f"{name} passed the frame steps' gates")
+    want9 = {"K1": 0, "K3": 0}
+    for name, data in refused.items():
         planes = dl.decode_video_yuv(data, device="cuda")
         rgba = dl.decode_video_rgba(data, device="cuda")
         torch.cuda.synchronize()
-        exact = all((p.cpu().numpy() == r).all() for p, r in zip(planes, fb_refs[name]))
-        hdr, _ = runtime.parse_header(data)
-        gf = dl.geometry(hdr["width"], hdr["height"])
-        want = canvas_rgba_plain(ref_canvases(gf, fb_refs[name], dev),
+        exact = all((p.cpu().numpy() == r).all() for p, r in zip(planes, refused_refs[name]))
+        gf = routes9[name].g
+        want = canvas_rgba_plain(ref_canvases(gf, refused_refs[name], dev),
                                  gf.height, gf.width, gf.ly0, gf.lcw)
         exact_rgba = torch.equal(rgba.view(torch.int32), want.view(torch.int32))
-        fb_frames += 2 * fb_refs[name][0].shape[0]
-        print(f"phase 9 fallback {name} (gate '{gates[name]}'): "
-              f"{tuple(planes[0].shape)} decode_video_yuv pixel-exact: {exact}, "
-              f"decode_video_rgba byte-exact: {exact_rgba}")
-        check(exact and exact_rgba, f"fallback {name} differs from ref_decode")
+        want9["K1" if routes9[name].kind == "units" else "K3"] += 2 * refused_refs[name][0].shape[0]
+        print(f"phase 9 {name} (route '{routes9[name].kind}', leading P-frame "
+              f"{routes9[name].leading_p}): {tuple(planes[0].shape)} decode_video_yuv "
+              f"pixel-exact: {exact}, decode_video_rgba byte-exact: {exact_rgba}")
+        check(exact and exact_rgba, f"{name} differs from ref_decode")
     fb_launches = read_counts()
-    print(f"phase 9 launches in the fallback run: {fb_launches} (frames decoded "
-          f"{fb_frames})")
-    check(fb_launches["K1"] == fb_launches["K3"] == fb_launches["K4"] == 0,
-          "a fallback stream launched K1, K3 or K4")
-    check(fb_launches["FS"] == fb_frames,
-          "the frame step was not launched once per fallback frame")
-    check(fb_launches["K5"] == fb_launches["K7"] == 0, "a fallback stream launched K5 or K7")
-    check(fb_launches["K2"] == len(fallback), "K2 was not launched once per RGBA call")
+    print(f"phase 9 launches in that run: {fb_launches} (expected K1 {want9['K1']}, K3 "
+          f"{want9['K3']}: once per frame, two calls each; the frame step 0)")
+    check([routes9[k].kind for k in refused] == ["units", "units", "dense"],
+          "phase 9's streams did not take the routes of their geometry")
+    check(fb_launches["K1"] == want9["K1"] and fb_launches["K3"] == want9["K3"],
+          "phase 9 did not launch K1 or K3 once per frame")
+    check(fb_launches["FS"] == fb_launches["K4"] == fb_launches["K5"] == fb_launches["K7"]
+          == 0, "phase 9 launched the frame step, K4, K5 or K7")
+    check(fb_launches["K2"] == len(refused), "K2 was not launched once per RGBA call")
 
     # phase 10: times
     info, _ = runtime.parse_header(datas["1080p"])
@@ -1140,16 +1192,20 @@ def main() -> int:
           f"of {REPS}, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in lt.items())
           + f" (sum {sum(lt.values()):.3f}); advance_frame loop {loop_ms:.3f} ms, "
           f"{1e3 * nfr / loop_ms:.2f} frames/s ({card})")
-    first_p = fallback["1080p_first_p"]
-    k1_ms, fb_ms = [], []
+    first_p = refused["1080p_first_p"]
+    k1_ms, kp_ms, fb_ms = [], [], []
     dl.decode_video_yuv(datas["1080p"], dev), dl.decode_video_yuv(first_p, dev)
+    dl.decode_frames(first_p, dev)
     for _ in range(REPS):
         k1_ms.append(host_ms(lambda: dl.decode_video_yuv(datas["1080p"], dev)))
-        fb_ms.append(host_ms(lambda: dl.decode_video_yuv(first_p, dev)))
-    print(f"phase 10 decode_video_yuv per 1080p clip, median of {REPS}: K1 path "
-          f"{statistics.median(k1_ms):.3f} ms ({refs['1080p'][0].shape[0]} frames), "
-          f"per-frame fallback {statistics.median(fb_ms):.3f} ms "
-          f"({fb_refs['1080p_first_p'][0].shape[0]} frames, first frame P) ({card})")
+        kp_ms.append(host_ms(lambda: dl.decode_video_yuv(first_p, dev)))
+        fb_ms.append(host_ms(lambda: dl.decode_frames(first_p, dev)))
+    print(f"phase 10 per 1080p clip, median of {REPS}: decode_video_yuv (K1) "
+          f"{statistics.median(k1_ms):.3f} ms ({refs['1080p'][0].shape[0]} frames); "
+          f"without its first I-packet ({refused_refs['1080p_first_p'][0].shape[0]} frames, "
+          f"first frame P): decode_video_yuv (K1 from the starting canvas) "
+          f"{statistics.median(kp_ms):.3f} ms, per-frame path (decode_frames) "
+          f"{statistics.median(fb_ms):.3f} ms ({card})")
 
     # phase 11: the sources, then K6 against its plain version
     from pfv_torch import encode_video
@@ -1392,7 +1448,7 @@ def main() -> int:
     def k3_inputs(host):
         g, (coeffs, mvx, mvy, hc, ftype, qmul) = dl.upload_packed(host, device=dev)
         return g, (coeffs, *dl.block_maps(g, mvx, mvy, hc), ftype, qmul, g.chh, g.cw,
-                   g.gly)
+                   g.gly, g.guw)
 
     hosts = {k: dl.demux_host_packed(d) for k, d in datas.items()}
     err_k3 = err_k4 = 0
@@ -1403,7 +1459,7 @@ def main() -> int:
         _, f, per_step, qmul = dl.upload_gops(host, *GOPS[name], dev)
         out = torch.empty((*GOPS[name], g.chh, g.cw), dtype=torch.uint8, device=dev)
         e4 = gop_steps(g, per_step, qmul, out)
-        dims = (g.chh, g.cw, g.gly)
+        dims = (g.chh, g.cw, g.gly, g.guw)
         whole = step_gops(*per_step, qmul, *dims)
         e4 = max(e4, max_abs_err(whole, out), max_abs_err(whole, step_gops_plain(
             *per_step, qmul, *dims)))
@@ -1429,7 +1485,7 @@ def main() -> int:
     _, f, per_step, qmul = dl.upload_gops(route.host, *route.gops, dev)
     out = torch.empty((*route.gops, g.chh, g.cw), dtype=torch.uint8, device=dev)
     e4 = gop_steps(g, per_step, qmul, out)
-    dims = (g.chh, g.cw, g.gly)
+    dims = (g.chh, g.cw, g.gly, g.guw)
     e4 = max(e4, max_abs_err(step_gops(*per_step, qmul, *dims), out))
     prev = torch.randint(0, 256, (route.gops[0], g.chh, g.cw), dtype=torch.uint8,
                          device=dev)
@@ -1444,7 +1500,35 @@ def main() -> int:
           f"random vectors in [-64, 63]: K3 max_abs_err {e3w}, K4 {e4w}")
     check(exact, f"K3 or K4 on the edge stream {name} differs from ref_decode")
     err_k3, err_k4 = max(err_k3, e3, e3w), max(err_k4, e4, e4w)
+    # K4 with random per-frame tables (U != V) from random canvases
+    rq = random_tables(int(np.prod(route.gops)), 8, dev).view(*route.gops, 3, 64)
+    prev = random_canvas(g, 8, dev, route.gops[0])
+    e4t = max_abs_err(step_gops(*per_step, rq, *dims, prev=prev),
+                      step_gops_plain(*per_step, rq, *dims, prev=prev))
     del per_step, out, canv, args, wild
+    # K3 with per-frame tables and a starting canvas: phase 9's 4112x64 stream
+    # without its I-packet, its own tables from the reference framebuffer
+    # (then exact vs ref_decode), random tables from a random canvas
+    name = "4112x64_first_p"
+    g, args = k3_inputs(dl.demux_host_packed(refused[name]))
+    start = initial_canvas(g, dev)
+    canv = seq_frames_dense(*args, prev=start)
+    e3t = {"own tables, reference framebuffer": max_abs_err(
+        canv, seq_frames_dense_plain(*args, prev=start))}
+    exact = all((p.cpu().numpy() == r).all()
+                for p, r in zip(dl.slice_yuv(g, canv), refused_refs[name]))
+    rand = (*args[:5], random_tables(args[4].shape[0], 9, dev), *args[6:])
+    start = random_canvas(g, 9, dev)
+    e3t["random tables, random canvas"] = max_abs_err(
+        seq_frames_dense(*rand, prev=start), seq_frames_dense_plain(*rand, prev=start))
+    print(f"phase 15 per-frame tables and a starting canvas: K3 on {name} "
+          f"({args[4].shape[0]} frames, the first P) max_abs_err "
+          + ", ".join(f"{k} {v}" for k, v in e3t.items())
+          + f", pixel-exact vs ref_decode: {exact}; K4 on the edge stream's GOPs, random "
+          f"tables from random canvases, max_abs_err {e4t}")
+    check(exact, f"K3 from the starting canvas differs from ref_decode on {name}")
+    err_k3, err_k4 = max(err_k3, *e3t.values()), max(err_k4, e4t)
+    del args, rand, canv
     check(err_k3 == 0 and err_k4 == 0, "K3 or K4 disagrees with its plain version")
 
     # phase 16: the dense routes, the third main path
@@ -1506,7 +1590,7 @@ def main() -> int:
     check(dense_launches["K2"] == 3, "K2 was not launched once per RGBA call")
     del dense_out, gop_out, gop_rgba
 
-    # phase 17: times of K3 and K4 per clip, the 8K layers, the fallback
+    # phase 17: times of K3 and K4 per clip, the 8K layers, the refused
     host8 = dl.demux_host_packed(uhd)
     k3_in = {}
     for name, host in (("1080p", hosts["1080p"]), ("8K UHD", host8)):
@@ -1527,7 +1611,7 @@ def main() -> int:
     for name in ("512x384", "1080p"):
         g, f, per_step, qmul = dl.upload_gops(hosts[name], *GOPS[name], dev)
         out = torch.empty((*GOPS[name], g.chh, g.cw), dtype=torch.uint8, device=dev)
-        dims = (g.chh, g.cw, g.gly)
+        dims = (g.chh, g.cw, g.gly, g.guw)
         times[("K4", name)] = paired_ms(
             lambda: step_gops(*per_step, qmul, *dims, out=out),
             lambda: step_gops_plain(*per_step, qmul, *dims, out=out))
@@ -1619,19 +1703,52 @@ def main() -> int:
                       for k in ("wait", "decode"))
           + f" (decode: K1 and K2 enqueued) ({card})")
 
-    # phase 19: a clip too long for the dense route, in chunks
+    # phase 19: 8K UHD streams of 48 frames, past a chunk's 24: the dense
+    # route in two chunks, each chunk's K3 from the last canvas of the one
+    # before; then decode_video_rgb_chunks, which cuts at I-packets
     uinfo, upackets = split_packets(uhd)
     uhd2 = synth.container(*UHD[:2], uinfo["qtables"], list(upackets) * 2)
     ref2 = [np.concatenate([r, r]) for r in d_refs["8K UHD"]]
-    route2 = dl.choose_route(uhd2)
+    pk = [p for p in upackets if p[0] == 2]
+    one_key = synth.container(*UHD[:2], uinfo["qtables"],
+                              upackets[:1] + [pk[i % len(pk)] for i in range(2 * UHD[2] - 1)])
+    t0 = time.perf_counter()
+    ref1 = runtime.ref_decode(one_key)[1:4]
+    ref1_s = time.perf_counter() - t0
+    long8k = {"packets twice": (uhd2, ref2), "one keyframe": (one_key, ref1)}
+    routes19 = {k: dl.choose_route(d) for k, (d, _) in long8k.items()}
+    g8 = routes19["packets twice"].g
+    chunks19 = {k: [dl._frame_meta(h[4], g8.nb)[0].size for h in r.host]
+                for k, r in routes19.items()}
     kinds = [dl.choose_route(c).kind for _, c in dl.chunk_streams(uhd2, UHD[2])]
-    print(f"phase 19 8K UHD stream of {2 * UHD[2]} frames ({len(uhd2)} bytes, the "
-          f"{UHD[2]}-frame stream's packets twice): whole, route '{route2.kind}' (gate "
-          f"'{route2.gate}'); in chunks of at most {UHD[2]} frames, routes {kinds}")
-    check((route2.kind, route2.gate) == ("frames", "F*64*row_span < 2^31"),
-          "the long 8K stream did not fail the dense route's length gate")
+    print(f"phase 19 8K UHD streams of {2 * UHD[2]} frames: the {UHD[2]}-frame stream's "
+          f"packets twice ({len(uhd2)} bytes) and its I-packet then its P-packets over and "
+          f"over ({len(one_key)} bytes, ref_decode {ref1_s:.1f} s): " + ", ".join(
+              f"{k} route '{r.kind}', chunks of {chunks19[k]} frames"
+              for k, r in routes19.items())
+          + f"; decode_video_rgb_chunks' runs of at most {UHD[2]} frames, routes {kinds}")
+    check(all(r.kind == "dense" for r in routes19.values())
+          and all(c == [UHD[2], UHD[2]] for c in chunks19.values()),
+          "the 48-frame 8K streams did not take the dense route in two chunks")
     check(kinds == ["dense", "dense"], "the 8K chunks did not take the dense route")
-    g8 = route2.g
+    zero_counts()
+    for name, (data, ref) in long8k.items():
+        planes = dl.decode_video_yuv(data, device="cuda")
+        exact = all((p.cpu().numpy() == r).all() for p, r in zip(planes, ref))
+        del planes
+        rgba = dl.decode_video_rgba(data, device="cuda")
+        exact_rgba = rgb_exact(g8, dl.rgba_view(rgba)[..., :3], ref, dev)
+        del rgba
+        print(f"phase 19 {name}: decode_video_yuv pixel-exact vs ref_decode: {exact}, "
+              f"decode_video_rgba equal to plain K2 of the reference planes: {exact_rgba}")
+        check(exact and exact_rgba, f"the 48-frame 8K stream ({name}) differs")
+    long_launches = read_counts()
+    print(f"phase 19 launches in that run: {long_launches} (K3 expected "
+          f"{8 * UHD[2]}: once per frame, four calls of {2 * UHD[2]} frames)")
+    check(long_launches["K3"] == 8 * UHD[2] and long_launches["K2"] == 2,
+          "the 48-frame streams did not launch K3 once per frame and K2 once per call")
+    check(all(v == 0 for k, v in long_launches.items() if k not in ("K2", "K3")),
+          "the 48-frame streams launched a kernel of another route")
     zero_counts()
     starts, exact = [], True
     for start, rgb in dl.decode_video_rgb_chunks(uhd2, UHD[2], device="cuda"):
@@ -1648,22 +1765,38 @@ def main() -> int:
           "the chunks did not launch K3 once per frame and K2 once per chunk")
     check(all(v == 0 for k, v in ch_launches.items() if k not in ("K2", "K3")),
           "the chunks launched a kernel of another route")
+    # peak memory: a 24-frame decode peaks in its densify, before its
+    # canvases exist; a 48-frame decode densifies its second chunk beside
+    # all 48 canvases and holds the second chunk's uploaded tensors too. A
+    # second chunk's coefficients alive at once would add 2.5 GB more.
+    up = dl.upload_chunks(routes19["packets twice"].host, dev)[1]
+    extra = 2 * UHD[2] * g8.chh * g8.cw, nbytes(*up[1])
+    del up
+    peak48 = peak_bytes(lambda: dl.decode_video_yuv(uhd2, device="cuda"))
+    peak24 = peak_bytes(lambda: dl.decode_video_yuv(uhd, device="cuda"))
     peak2 = peak_bytes(lambda: drain(dl.decode_video_rgb_chunks(uhd2, UHD[2],
                                                                  device="cuda")))
     peak1 = peak_bytes(lambda: drain([dl.decode_video_rgb(uhd, device="cuda")]))
-    ch_ms = [host_ms(lambda: drain(dl.decode_video_rgb_chunks(uhd2, UHD[2], device="cuda")))
-             for _ in range(ENC_REPS)]
-    fb_ms2 = [host_ms(lambda: drain([dl.decode_video_rgb(uhd2, device="cuda")]))
-              for _ in range(2)]
-    print(f"phase 19 per {2 * UHD[2]}-frame 8K clip: in chunks median of {ENC_REPS} "
-          f"{statistics.median(ch_ms):.3f} ms ({', '.join(f'{v:.3f}' for v in ch_ms)}); "
-          f"whole, frame by frame (decode_video_rgb, route 'frames') "
-          f"{', '.join(f'{v:.3f}' for v in fb_ms2)} ms; peak device memory "
-          f"(torch.cuda.max_memory_allocated over the call): chunks {peak2} bytes, "
-          f"decode_video_rgb of the {UHD[2]}-frame stream {peak1} bytes, ratio "
+    t19 = {"decode_video_yuv (dense route, two chunks)": (
+               ENC_REPS, lambda: dl.decode_video_yuv(uhd2, dev)),
+           f"decode_video_rgb_chunks (cap {UHD[2]})": (
+               ENC_REPS, lambda: drain(dl.decode_video_rgb_chunks(uhd2, UHD[2],
+                                                                  device="cuda"))),
+           "decode_frames (per-frame path)": (2, lambda: dl.decode_frames(uhd2, dev))}
+    t19 = {k: [host_ms(fn) for _ in range(n)] for k, (n, fn) in t19.items()}
+    print(f"phase 19 per {2 * UHD[2]}-frame 8K clip (packets twice), ms: " + "; ".join(
+        f"{k} median {statistics.median(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+        for k, v in t19.items()) + f" ({card})")
+    print(f"phase 19 peak device memory (torch.cuda.max_memory_allocated over the call): "
+          f"decode_video_yuv of 48 frames {peak48} bytes, of the 24-frame stream {peak24} "
+          f"bytes, more by {peak48 - peak24} (the 48 canvases {extra[0]} and the second "
+          f"chunk's uploaded tensors {extra[1]}: {sum(extra)}); decode_video_rgb_chunks {peak2} "
+          f"bytes, decode_video_rgb of the {UHD[2]}-frame stream {peak1} bytes, ratio "
           f"{peak2 / peak1:.4f} ({card})")
+    check(peak48 - peak24 <= sum(extra) + (64 << 20),
+          "the 48-frame decode held more than one chunk's coefficients at a time")
     check(peak2 < 1.25 * peak1, "more than one chunk was alive at a time")
-    del ref2
+    del ref2, ref1, long8k
 
     # phase 20: a stream batch and a GOP split over a list of devices (the
     # one card named twice: two threads, two streams)
@@ -1777,8 +1910,9 @@ def main() -> int:
           and cli_launches["K6"] == cli_launches["FS"] == 8 and cli_launches["K8"] == 7,
           "the tool's launch counts are off")
     main_runs = {3: launches, 8: dec_launches, 9: fb_launches, 12: enc_launches,
-                 13: st_launches, 16: dense_launches, 18: ld_launches, 19: ch_launches,
-                 20: par_launches, 21: eg_launches, 22: cli_launches}
+                 13: st_launches, 16: dense_launches, 18: ld_launches, 19: long_launches,
+                 "19 chunks": ch_launches, 20: par_launches, 21: eg_launches,
+                 22: cli_launches}
     print("launches per main-path phase: " + "; ".join(
         f"{ph}: " + ", ".join(f"{k} {v}" for k, v in r.items() if v)
         for ph, r in main_runs.items()))

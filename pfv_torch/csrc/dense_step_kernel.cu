@@ -20,8 +20,12 @@
 // step_common.cuh's cooperative iDCT, prediction and select, as K1 does. A
 // P-frame CTA without a coded block reads no coefficient and runs no iDCT.
 //
-// The two entries: pfv_dense_seq_clip launches the frames of a clip, frame
-// f predicting from frame f-1 of the output itself; pfv_dense_gops
+// Every frame dequantizes with its own (3, 64) multipliers, by the plane of
+// each subblock (step_common.cuh's plane_residual).
+//
+// The two entries: pfv_dense_seq_clip launches the frames of a clip (or of
+// one chunk of a clip), frame f predicting from frame f-1 of the output
+// itself and frame 0 from `prev` (zeros without one); pfv_dense_gops
 // launches L steps for a batch of G GOPs, grid (stripes, lane blocks, G):
 // step l decodes frame l of every GOP from frame l-1 of the same GOP (from
 // `prev`, or zeros, for step 0). Each tensor has a stride per GOP and per
@@ -60,10 +64,10 @@ dense_step_kernel(const int16_t* __restrict__ coeffs, long long cstride,
                   const int8_t* __restrict__ dy, const int8_t* __restrict__ dx,
                   const uint8_t* __restrict__ hc, long long mstride,
                   const int* __restrict__ ftype, long long fstride,
-                  const int* __restrict__ qmul,
+                  const int* __restrict__ qmul, long long qstride,
                   const uint8_t* __restrict__ prev, long long pstride,
                   uint8_t* __restrict__ out, long long ostride, int chh, int cw,
-                  int gly, int row_span) {
+                  int gly, int guw, int row_span) {
   __shared__ __align__(16) pfv::Tile tile;
   pfv::launch_dependents();
 
@@ -88,7 +92,7 @@ dense_step_kernel(const int16_t* __restrict__ coeffs, long long cstride,
       dst[1] = make_int4((int16_t)(v.z & 0xFFFF), v.z >> 16, (int16_t)(v.w & 0xFFFF), v.w >> 16);
     }
     __syncthreads();
-    pfv::residual(tile, qmul + ((intra ? 0 : 2) + (s < gly ? 0 : 1)) * 64);
+    pfv::plane_residual(tile, qmul + b * qstride, s < gly, guw, lb * kMbs);
   }
 
   pfv::wait_previous_grid();
@@ -102,13 +106,16 @@ dense_step_kernel(const int16_t* __restrict__ coeffs, long long cstride,
 // K3: launches frames 0 .. frames-1 of the clip on `stream`; returns the
 // first launch's error (cudaGetLastError() after each), else 0.
 // coeffs (F, 64, row_span) i16, dy/dx (F, gch, gcw) i8, hc (F, gch, gcw)
-// u8, ftype (F) i32, qmul (2, 2, 64) i32, out (F, chh, cw) u8; coeffs and
-// out 16-byte aligned.
+// u8, ftype (F) i32, qmul (F, 3, 64) i32, prev (chh, cw) u8 or null for
+// zeros, out (F, chh, cw) u8; coeffs and canvases 16-byte aligned; guw: U's
+// block columns in a chroma stripe. The first launch is an ordinary one, so
+// `prev` may be the last canvas of the call before on the stream.
 extern "C" int pfv_dense_seq_clip(const void* coeffs, const void* dy,
                                   const void* dx, const void* hc,
                                   const void* ftype, const void* qmul,
-                                  void* out, int frames, int chh, int cw,
-                                  int gly, int row_span, void* stream) {
+                                  const void* prev, void* out, int frames, int chh,
+                                  int cw, int gly, int guw, int row_span,
+                                  void* stream) {
   const long long plane = (long long)chh * cw;
   const long long maps = (long long)(chh / 16) * (cw / 16);
   const dim3 grid = pfv::grid_of(chh, cw, 1);
@@ -119,9 +126,9 @@ extern "C" int pfv_dense_seq_clip(const void* coeffs, const void* dy,
         (const int16_t*)coeffs + fr * 64 * row_span, 0LL,
         (const int8_t*)dy + fr * maps, (const int8_t*)dx + fr * maps,
         (const uint8_t*)hc + fr * maps, 0LL, (const int*)ftype + fr, 0LL,
-        (const int*)qmul,
-        f > 0 ? (const uint8_t*)out + (fr - 1) * plane : (const uint8_t*)nullptr,
-        0LL, (uint8_t*)out + fr * plane, 0LL, chh, cw, gly, row_span);
+        (const int*)qmul + fr * 192, 0LL,
+        f > 0 ? (const uint8_t*)out + (fr - 1) * plane : (const uint8_t*)prev,
+        0LL, (uint8_t*)out + fr * plane, 0LL, chh, cw, gly, guw, row_span);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
@@ -131,17 +138,19 @@ extern "C" int pfv_dense_seq_clip(const void* coeffs, const void* dy,
 // returns the first launch's error (cudaGetLastError() after each), else
 // 0. Frame (g, l) of each argument starts g * (its GOP stride) + l * (its
 // step stride) elements after its pointer: coeffs (64, row_span) i16,
-// dy/dx/hc (gch, gcw) i8/i8/u8 (one pair of strides), ftype one i32, out
-// (chh, cw) u8. prev: GOP g's (chh, cw) u8 canvas before step 0 at
-// g * pstride, or null for zeros. qmul (2, 2, 64) i32 is shared. Canvases
-// and coeffs 16-byte aligned.
+// dy/dx/hc (gch, gcw) i8/i8/u8 (one pair of strides), ftype one i32, qmul
+// (3, 64) i32 (the frame's multipliers of Y, U and V), out (chh, cw) u8.
+// prev: GOP g's (chh, cw) u8 canvas before step 0 at g * pstride, or null
+// for zeros. Canvases and coeffs 16-byte aligned; guw: U's block columns
+// in a chroma stripe.
 extern "C" int pfv_dense_gops(const void* prev, long long pstride,
                               const void* coeffs, long long cs_g, long long cs_l,
                               const void* dy, const void* dx, const void* hc,
                               long long ms_g, long long ms_l, const void* ftype,
                               long long fs_g, long long fs_l, const void* qmul,
-                              void* out, long long os_g, long long os_l, int gops,
-                              int steps, int chh, int cw, int gly, int row_span,
+                              long long qs_g, long long qs_l, void* out,
+                              long long os_g, long long os_l, int gops, int steps,
+                              int chh, int cw, int gly, int guw, int row_span,
                               void* stream) {
   const dim3 grid = pfv::grid_of(chh, cw, gops);
   for (int l = 0; l < steps; l++) {
@@ -150,9 +159,9 @@ extern "C" int pfv_dense_gops(const void* prev, long long pstride,
         dense_step_kernel, grid, (cudaStream_t)stream, l > 0,
         (const int16_t*)coeffs + l * cs_l, cs_g, (const int8_t*)dy + m,
         (const int8_t*)dx + m, (const uint8_t*)hc + m, ms_g,
-        (const int*)ftype + l * fs_l, fs_g, (const int*)qmul,
+        (const int*)ftype + l * fs_l, fs_g, (const int*)qmul + l * qs_l, qs_g,
         l > 0 ? (const uint8_t*)out + (l - 1) * os_l : (const uint8_t*)prev,
-        l > 0 ? os_g : pstride, (uint8_t*)out + l * os_l, os_g, chh, cw, gly,
+        l > 0 ? os_g : pstride, (uint8_t*)out + l * os_l, os_g, chh, cw, gly, guw,
         row_span);
     if (e != cudaSuccess) return (int)e;
   }

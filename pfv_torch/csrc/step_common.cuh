@@ -12,11 +12,14 @@
 //     shared int32 tile `acc` (row-major slot r, lane l);
 //   B residual: eight threads per 8x8 subblock. Thread t takes column
 //     i = t / 32 of the lanes l = 32p + lane_of(t % 32), p = 0..3: it
-//     dequantizes the column with qmul[I/P][luma/chroma][r] in wrapping
-//     uint32 (Q1), runs the 8-point iDCT (dct8.cuh) and writes the column
-//     back into the same eight words of `acc`; after a barrier it takes row
-//     i of the same lanes, runs the iDCT, clamps (m >> 8) + 128 to 0..255
-//     and stores the row's 8 pixels with one 8-byte store into `res`:
+//     dequantizes the column with the 64 multipliers of the subblock's
+//     plane (plane_residual: the frame's Y row in a luma stripe; in a
+//     chroma stripe its U row left of block column guw, its V row from
+//     there) in wrapping uint32 (Q1), runs the 8-point iDCT (dct8.cuh) and
+//     writes the column back into the same eight words of `acc`; after a
+//     barrier it takes row i of the same lanes, runs the iDCT, clamps
+//     (m >> 8) + 128 to 0..255 and stores the row's 8 pixels with one
+//     8-byte store into `res`:
 //     lane l = 4*gc + 2*sr + sc, pixel (i, j) -> stripe row 8*sr + i,
 //     column 16*gc + 8*sc + j. In every warp the 32 threads share i and
 //     read 32 different lanes of one `acc` row (no bank conflict); each
@@ -92,17 +95,21 @@ __device__ __forceinline__ bool mark_needed(Tile& t, bool intra,
 }
 
 // Stage B: the residual of the CTA's kLanes lanes from t.acc into t.res;
-// q: the 64 multipliers of the frame type and region. Ends in a barrier.
-__device__ __forceinline__ void residual(Tile& t, const int* __restrict__ q) {
+// qa: the 64 row-major multipliers of the CTA's macroblocks before `split`
+// (counted from the CTA's first), qb: those of the macroblocks from it on.
+// Ends in a barrier.
+__device__ __forceinline__ void residual(Tile& t, const int* __restrict__ qa,
+                                         const int* __restrict__ qb, int split) {
   const int i = threadIdx.x >> 5, w = threadIdx.x & 31;
   const int sr = w >> 4, gcl = (w & 15) >> 1, sc = w & 1;
   const int l0 = 4 * gcl + 2 * sr + sc;
-  u32 qc[8];
-#pragma unroll
-  for (int k = 0; k < 8; k++) qc[k] = (u32)q[8 * k + i];
 #pragma unroll
   for (int p = 0; p < 4; p++) {
     const int l = 32 * p + l0;
+    const int* __restrict__ q = 8 * p + gcl < split ? qa : qb;
+    u32 qc[8];
+#pragma unroll
+    for (int k = 0; k < 8; k++) qc[k] = (u32)q[8 * k + i];
     u32 v[8];
 #pragma unroll
     for (int k = 0; k < 8; k++) v[k] = (u32)t.acc[8 * k + i][l] * qc[k];
@@ -128,6 +135,24 @@ __device__ __forceinline__ void residual(Tile& t, const int* __restrict__ q) {
         make_uint2(px[0], px[1]);
   }
   __syncthreads();
+}
+
+// Stage B with one table q for every macroblock.
+__device__ __forceinline__ void residual(Tile& t, const int* __restrict__ q) {
+  residual(t, q, q, kMbs);
+}
+
+// Stage B of the fused canvas: qf, the frame's (3, 64) multipliers (rows
+// Y, U, V); a luma stripe takes row Y, a chroma stripe row U for its block
+// columns below guw (the U plane's) and row V from there; gc0: the CTA's
+// first block column.
+__device__ __forceinline__ void plane_residual(Tile& t, const int* __restrict__ qf,
+                                               bool luma, int guw, int gc0) {
+  if (luma) {
+    residual(t, qf);
+  } else {
+    residual(t, qf + 64, qf + 128, guw - gc0);
+  }
 }
 
 // Where a 16-pixel window whose start is s lies on an axis of n pixels, for

@@ -14,9 +14,11 @@
 // idx << 16 | (u16)(i16)val, idx = r << 10 | lane) into the 64 x 128 int32
 // shared tile with atomicAdd, which is exact in any order (a coefficient
 // may span several units); the dequantize, iDCT, merge, prediction and
-// select are step_common.cuh's, shared with K3/K4. The prediction reads
-// frame f-1 of the output itself, after the grid-dependency wait. A
-// P-frame CTA without a coded block skips the densify and the iDCT.
+// select are step_common.cuh's, shared with K3/K4; the dequantization takes
+// frame f's own multipliers for each subblock's plane. The prediction reads
+// frame f-1 of the output itself, after the grid-dependency wait, and
+// frame 0 reads the starting canvas `prev` (zeros without one). A P-frame
+// CTA without a coded block skips the densify and the iDCT.
 //
 // Its least time is the bytes' (0.12 ms per 1080p clip; the integer
 // operations take less at the card's issue rate). Design: eight threads
@@ -45,8 +47,9 @@ __global__ void __launch_bounds__(kThreads, 4)
 step_frame_kernel(const u32* __restrict__ units, const int* __restrict__ coff,
                   const int8_t* __restrict__ dy, const int8_t* __restrict__ dx,
                   const uint8_t* __restrict__ hc, const int* __restrict__ ftype,
-                  const int* __restrict__ qmul, uint8_t* __restrict__ out,
-                  int f, int chh, int cw, int gly, int chunk) {
+                  const int* __restrict__ qmul, const uint8_t* __restrict__ prev,
+                  uint8_t* __restrict__ out, int f, int chh, int cw, int gly, int guw,
+                  int chunk) {
   __shared__ __align__(16) pfv::Tile tile;
   pfv::launch_dependents();
 
@@ -74,12 +77,12 @@ step_frame_kernel(const u32* __restrict__ units, const int* __restrict__ coff,
       if ((unsigned)lane < (unsigned)kLanes) atomicAdd(&tile.acc[idx >> 10][lane], val);
     }
     __syncthreads();
-    pfv::residual(tile, qmul + ((intra ? 0 : 2) + (s < gly ? 0 : 1)) * 64);
+    pfv::plane_residual(tile, qmul + (size_t)f * 192, s < gly, guw, gc0);
   }
 
   pfv::wait_previous_grid();
   pfv::store_tile(tile, intra, dy + maps, dx + maps, hc + maps,
-                  f > 0 ? out + (size_t)(f - 1) * plane : nullptr,
+                  f > 0 ? out + (size_t)(f - 1) * plane : prev,
                   out + (size_t)f * plane, s, lb * pfv::kCols, chh, cw);
 }
 
@@ -89,20 +92,23 @@ step_frame_kernel(const u32* __restrict__ units, const int* __restrict__ coff,
 // ordinary launch and the others with programmatic stream serialization;
 // returns the first launch's error (cudaGetLastError() after each), else 0.
 // units (NC, chunk) u32, coff (F*gch + 1) i32, dy/dx (F, gch, gcw) i8,
-// hc (F, gch, gcw) u8, ftype (F) i32, qmul (2, 2, 64) i32,
-// out (F, chh, cw) u8, 16-byte aligned.
+// hc (F, gch, gcw) u8, ftype (F) i32, qmul (F, 3, 64) i32 (frame f's
+// multipliers of Y, U and V), prev (chh, cw) u8 or null (zeros), out
+// (F, chh, cw) u8, canvases 16-byte aligned; guw: U's block columns in a
+// chroma stripe (V's start there). The first launch being an ordinary one,
+// `prev` may be written by the work before the call on the stream.
 extern "C" int pfv_step_clip(const void* units, const void* coff,
                              const void* dy, const void* dx, const void* hc,
-                             const void* ftype, const void* qmul, void* out,
-                             int frames, int chh, int cw, int gly, int chunk,
-                             void* stream) {
+                             const void* ftype, const void* qmul, const void* prev,
+                             void* out, int frames, int chh, int cw, int gly, int guw,
+                             int chunk, void* stream) {
   const dim3 grid = pfv::grid_of(chh, cw, 1);
   for (int f = 0; f < frames; f++) {
     const cudaError_t e = pfv::launch(
         step_frame_kernel, grid, (cudaStream_t)stream, f > 0, (const u32*)units,
         (const int*)coff, (const int8_t*)dy, (const int8_t*)dx,
-        (const uint8_t*)hc, (const int*)ftype, (const int*)qmul, (uint8_t*)out,
-        f, chh, cw, gly, chunk);
+        (const uint8_t*)hc, (const int*)ftype, (const int*)qmul,
+        (const uint8_t*)prev, (uint8_t*)out, f, chh, cw, gly, guw, chunk);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;

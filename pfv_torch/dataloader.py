@@ -1,26 +1,31 @@
 """Whole-clip decode of a .pfv stream into device memory (PyTorch/CUDA).
 
 Counterpart of pfv_tpu/dataloader.py. A stream takes one of four routes
-(`choose_route`), in the JAX package's order:
+(`choose_route`), by its geometry:
 
-  "units"  .pfv bytes -> C++ tile demux (host) -> H2D -> per-clip tables
-           -> K1 frame step, one launch per frame -> (F, chh, cw) canvases
-  "dense"  .pfv bytes -> C++ pstep demux (host) -> H2D -> densify_pstep (a
-           device scatter-add into (F, 64, row_span) coefficients) -> K3,
-           one launch per frame
-  "gops"   as "dense", but a uniform keyframe interval L and small frames:
-           G GOPs side by side, K4, one launch per step of all GOPs, L
-           launches
+  "units"  widths up to 4096: .pfv bytes -> C++ tile demux (host) -> H2D
+           -> per-frame tables -> K1 frame step, one launch per frame ->
+           (F, chh, cw) canvases
+  "gops"   wider, small frames with a uniform keyframe interval L: .pfv
+           bytes -> C++ pstep demux (host) -> H2D -> densify_pstep (a device
+           scatter-add into (G*L, 64, row_span) coefficients) -> K4, G GOPs
+           side by side, one launch per step: L launches
+  "dense"  the other wide streams: the container cut into chunks of whole
+           frames, each demuxed on its own (pstep) and uploaded; then chunk
+           by chunk densify_pstep and K3, one launch per frame, each chunk
+           from the last canvas of the one before it
   "frames" decode_frames: the streaming decoder's frame step (one launch
-           per frame for Y, U and V), for every stream the others refuse
+           per frame for Y, U and V), only for a geometry whose row of
+           dense coefficients does not fit the pstep demux (`dense_gate`)
 
-then YUV views of the canvases | K2 -> (F, H, W) uint32 RGBA. K1 takes
-every stream whose lanes fit its units (2*scp <= 1024, widths up to ~4K);
-K3 and K4 take the wider ones. The canvas fuses the three planes: Y at rows
-[0, ly0), U and V side by side below it, V starting at column lcw. Every
-public entry point takes an explicit `device` ("cuda" by default) and
-leaves its result there; a CPU device runs the kernels' plain PyTorch
-versions.
+then YUV views of the canvases | K2 -> (F, H, W) uint32 RGBA. K1, K3 and K4
+take any frame types and any q-table index per frame and plane: every frame
+dequantizes with its own multipliers, and a stream whose first frame is a
+P-frame predicts it from the reference framebuffer (Y 0, U and V 128). The
+canvas fuses the three planes: Y at rows [0, ly0), U and V side by side
+below it, V starting at column lcw. Every public entry point takes an
+explicit `device` ("cuda" by default) and leaves its result there; a CPU
+device runs the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -32,8 +37,8 @@ import torch
 
 from pfv_torch import runtime
 from pfv_torch.dec import (FrameDecoder, frame_packets, keyframe_runs, keyframes_of,
-                           scan_packets)
-from pfv_torch.frame import Geometry, geometry, slice_yuv
+                           makes_frame, scan_packets)
+from pfv_torch.frame import Geometry, geometry, initial_canvas, slice_yuv
 from pfv_torch.kernels.dense_step import MAX_ROW_SPAN, seq_frames_dense, step_gops
 from pfv_torch.kernels.rgba import canvas_rgba
 from pfv_torch.kernels.step import lanes_per_stripe, step_frames
@@ -41,7 +46,11 @@ from pfv_torch.ops.quant import DCT_SCALE_FACTOR, INV_ZIGZAG_TABLE
 
 UNITS_CHUNK = 128  # units per chunk of the tile demux
 GOP_MAX_BLOCKS = 4096  # the GOP route takes small frames only (SD, not 1080p)
-MAX_POSITIONS = 1 << 31  # the demux's flat unit positions are int32
+MAX_POSITIONS = 1 << 31  # the pstep demux's flat unit positions are int32
+# The most dense coefficient positions of one chunk: 24 frames of 8K UHD
+# (64*row_span = 53,084,160 each). The densify holds 6 bytes per position
+# (an int32 sum and its int16 copy), ~7.6 GB at this cap.
+CHUNK_POSITIONS = 24 * 53_084_160
 
 
 def tile_tables(g: Geometry):
@@ -68,46 +77,39 @@ def pstep_tables(g: Geometry):
     return (stripe * rs + lane).astype(np.int32), r_of_zz, gch * rs
 
 
-def stream_gate(ftype, qidx, n_qtables: int):
-    """The name of the first gate of the frame steps (K1, K3, K4) that the
-    stream's frame types and q-table indices fail, or None: the first frame
-    is intra, and the q-table indices are uniform per frame type with
-    U == V. Raises ValueError for a q-table index the header does not
-    have."""
-    ftype = np.asarray(ftype).reshape(-1)
-    qidx = np.asarray(qidx).reshape(-1, 3)
-    if (qidx >= n_qtables).any():
+def stream_gate(qidx, n_qtables: int) -> None:
+    """The one check of the frame steps (K1, K3, K4) on a stream's frames:
+    raises ValueError for a q-table index the header does not have. Any
+    frame types and any index per frame and plane pass."""
+    if (np.asarray(qidx) >= n_qtables).any():
         raise ValueError("corrupt stream: q-table index out of range")
-    if ftype.size == 0 or ftype[0] != 1:
-        return "first frame is intra"
-    uniform = (qidx[:, 1] == qidx[:, 2]).all() and all(
-        (rows == rows[:1]).all() for rows in (qidx[ftype == t] for t in (1, 2)))
-    if not uniform:
-        return "uniform q indices per frame type, U == V"
-    return None
 
 
-def failed_gate(g: Geometry, ftype=None, qidx=None, n_qtables: int = 0):
-    """The name of the first of K1's gates the stream fails, or None: the
-    u16 unit index fits (2*scp <= 1024; the only gate without ftype and
-    qidx, checked before the tile demux), then `stream_gate`."""
+def failed_gate(g: Geometry):
+    """The gate of the "units" route, checked before any demux: "2*scp <=
+    1024" when a stripe's lanes do not fit K1's 10-bit unit lanes (widths
+    above 4096), else None."""
     if lanes_per_stripe(g.cw) > 1024:
         return "2*scp <= 1024"
-    if ftype is None:
-        return None
-    return stream_gate(ftype, qidx, n_qtables)
-
-
-def dense_gate(g: Geometry, n_frames: int):
-    """The name of the first geometry gate of the dense route (K3, K4) the
-    stream fails, or None: a row of the dense coefficients fits the pstep
-    demux's 24-bit offsets, and the clip's positions fit int32."""
-    row_span = pstep_tables(g)[2]
-    if row_span >= MAX_ROW_SPAN:
-        return "row_span < 2^24"
-    if n_frames * 64 * row_span >= MAX_POSITIONS:
-        return "F*64*row_span < 2^31"
     return None
+
+
+def dense_gate(g: Geometry):
+    """The one gate of the dense routes (K3, K4), a geometry's: "row_span <
+    2^24" when a row of the dense coefficients does not fit the pstep
+    demux's 24-bit offsets (32768x32768 fails it), else None."""
+    if pstep_tables(g)[2] >= MAX_ROW_SPAN:
+        return "row_span < 2^24"
+    return None
+
+
+def dense_chunk_frames(g: Geometry) -> int:
+    """The most frames one chunk of the dense routes holds: its positions,
+    the one past its last frame included, fit the demux's int32
+    (MAX_POSITIONS) and CHUNK_POSITIONS. At least 1 for a geometry that
+    passes `dense_gate` (64*row_span < 2^30)."""
+    span = 64 * pstep_tables(g)[2]
+    return min((MAX_POSITIONS - 1) // span, CHUNK_POSITIONS // span)
 
 
 def gop_shape(ftype, nb: int):
@@ -131,16 +133,19 @@ def gop_shape(ftype, nb: int):
 
 class Route(NamedTuple):
     """How a stream decodes. kind "units": `host` holds `demux_host`'s
-    output (K1); "dense" and "gops": `host` holds `demux_host_packed`'s
-    output, and `gops` the (G, L) of the GOP route (K4; K3 for "dense");
-    "frames": the per-frame path (K5 + K7), `gate` naming the gate the
-    stream failed."""
+    output (K1); "gops": `host` holds `demux_host_packed`'s output and
+    `gops` the (G, L) of the GOP route (K4); "dense": `host` holds a list,
+    `demux_host_packed`'s output for each chunk of the stream (K3);
+    "frames": the per-frame path, `gate` naming the gate the stream failed.
+    `leading_p`: the first frame is a P-frame, predicted from the reference
+    framebuffer (`frame.initial_canvas`)."""
 
     g: Geometry
     kind: str
     gate: str | None
-    host: tuple | None
+    host: tuple | list | None
     gops: tuple | None = None
+    leading_p: bool = False
 
 
 def _pack_meta(bh, ftype, qidx) -> np.ndarray:
@@ -155,40 +160,57 @@ def _frame_meta(meta: np.ndarray, nb: int):
     return meta[f * nb:f * nb + f], meta[f * nb + f:].reshape(f, 3)
 
 
+def frame_chunks(data: bytes, spans, frames: int, cap: int) -> list[bytes]:
+    """The stream cut before frames cap, 2*cap, ... into streams of their
+    own (`keyframe_runs`, one copy per run): `spans` and `frames` are
+    `scan_packets`' spans and the frames they make; a stream of at most
+    `cap` frames is its own one chunk, not copied. A run may open with a
+    P-packet; a drop frame or an unknown packet stays with the run it lies
+    in."""
+    if not spans or frames <= cap:
+        return [data]
+    return list(keyframe_runs(data, spans, list(range(0, max(frames, 1), cap))))
+
+
 def choose_route(data: bytes, num_threads: int = 0) -> Route:
-    """Run the demux the stream's geometry allows, then the gates."""
+    """Pick the route by the stream's geometry (and, above width 4096, its
+    keyframe pattern), then run the route's demux. Raises ValueError for a
+    q-table index the header does not have."""
     hdr, _ = runtime.parse_header(data)
     g = geometry(hdr["width"], hdr["height"])
     nq = hdr["qtables"].shape[0]
     if failed_gate(g) is None:
         info, units, coff, bh, ftype, qidx = runtime.demux_file_sparse_tiles(
             data, tile_tables(g), chunk=UNITS_CHUNK, num_threads=num_threads)
-        gate = failed_gate(g, ftype, qidx, nq)
-        if gate is not None:
-            return Route(g, "frames", gate, None)
-        return Route(g, "units", None, (info, g, units, coff,
-                                        _pack_meta(bh, ftype, qidx)))
-    gate = dense_gate(g, runtime.count_frames(data))
+        stream_gate(qidx, nq)
+        return Route(g, "units", None, (info, g, units, coff, _pack_meta(bh, ftype, qidx)),
+                     leading_p=bool(ftype.size and ftype[0] == 2))
+    gate = dense_gate(g)
     if gate is not None:
         return Route(g, "frames", gate, None)
-    host = demux_host_packed(data, num_threads)
-    ftype, qidx = _frame_meta(host[4], g.nb)
-    gate = stream_gate(ftype, qidx, nq)
-    if gate is not None:
-        return Route(g, "frames", gate, None)
+    _, spans = scan_packets(data)
+    ftype = np.array([t for a, b, t in spans if makes_frame(a, b, t)], np.uint8)
+    cap = dense_chunk_frames(g)
     gops = gop_shape(ftype, g.nb)
-    return Route(g, "dense" if gops is None else "gops", None, host, gops)
+    if gops is not None and gops[0] * gops[1] <= cap:
+        host = demux_host_packed(data, num_threads)
+        stream_gate(_frame_meta(host[4], g.nb)[1], nq)
+        return Route(g, "gops", None, host, gops)
+    hosts = [demux_host_packed(c, num_threads)
+             for c in frame_chunks(data, spans, ftype.size, cap)]
+    for host in hosts:
+        stream_gate(_frame_meta(host[4], g.nb)[1], nq)
+    return Route(g, "dense", None, hosts, leading_p=bool(ftype.size and ftype[0] == 2))
 
 
 def demux_host(data: bytes, num_threads: int = 0):
     """Parse and entropy-decode `data` on the host into the tile layout:
     (info, geometry, units (NC, 128) u32, coff (F*gch + 1,) i32,
     meta (F*nb + 4F,) u16 = [block headers | ftype | qidx]). Raises
-    ValueError, naming the gate, for a stream K1 does not take."""
+    ValueError, naming the gate, for a geometry K1 does not take."""
     route = choose_route(data, num_threads)
     if route.kind != "units":
-        gate = route.gate or failed_gate(route.g)
-        raise ValueError(f"gate '{gate}' failed for a "
+        raise ValueError(f"gate '{failed_gate(route.g)}' failed for a "
                          f"{route.g.width}x{route.g.height} stream")
     return route.host
 
@@ -199,7 +221,9 @@ def demux_host_packed(data: bytes, num_threads: int = 0):
     The inclusive cumsum of the deltas gives each unit's position in the
     dense (F, 64, row_span) coefficients, the last unit parked at
     F*64*row_span; `densify_pstep` scatter-adds the vals there. Raises
-    ValueError where the positions do not fit (`dense_gate`)."""
+    ValueError where the positions do not fit int32 (the dense route cuts a
+    stream into chunks of at most `dense_chunk_frames` frames first) or a
+    row does not fit 24 bits (`dense_gate`)."""
     hdr, _ = runtime.parse_header(data)
     g = geometry(hdr["width"], hdr["height"])
     info, deltas, vals, bh, ftype, qidx = runtime.demux_file_sparse_packed(
@@ -238,23 +262,15 @@ def block_maps(g: Geometry, mvx, mvy, hc):
             canvas_order(hc, torch.uint8))
 
 
-def dequant_multipliers(qtables, ftype, hc, qidx) -> torch.Tensor:
-    """(2, 2, 64) int32 multipliers [I/P][luma/chroma][row-major r] =
-    (qtable * SCALE)[INV_ZIGZAG] (quirk Q1): mode I from the first I-frame's
-    q indices, mode P from the first P-frame with a coded block (frame 0's
-    when there is none)."""
+def frame_multipliers(qtables, qidx) -> torch.Tensor:
+    """(F, 3, 64) int32 dequant multipliers, on the tables' device: row
+    (f, p) = (qtables[qidx[f, p]] * SCALE)[INV_ZIGZAG] (quirk Q1) in the
+    row-major r order the demuxes deliver, p = 0, 1, 2 for Y, U, V. One
+    gather of the (nq, 64) products by the (F, 3) indices."""
     dev = qtables.device
     scale = torch.from_numpy(DCT_SCALE_FACTOR).to(dev)
     iz = torch.from_numpy(INV_ZIGZAG_TABLE).long().to(dev)
-    i_idx = torch.argmax((ftype == 1).to(torch.int32))
-    coded_p = (ftype == 2) & (hc.to(torch.int32).sum(dim=1) > 0)
-    p_idx = torch.argmax(coded_p.to(torch.int32))
-
-    def tables(sel):
-        return torch.stack([(qtables[sel[0]] * scale)[iz],
-                            (qtables[sel[1]] * scale)[iz]])
-
-    return torch.stack([tables(qidx[i_idx]), tables(qidx[p_idx])])
+    return (qtables * scale)[:, iz][qidx.long()]
 
 
 def pageable_copy(dev):
@@ -265,21 +281,21 @@ def pageable_copy(dev):
 
 def _meta_tables(g: Geometry, meta_t, qtables_t):
     """The meta words (int16 bits) and the q-tables, both on the device ->
-    (mvx, mvy, hc (F, nb), ftype (F,) int32, qmul (2, 2, 64) int32)."""
+    (mvx, mvy, hc (F, nb), ftype (F,) int32, qmul (F, 3, 64) int32)."""
     mvx, mvy, hc, ftype, qidx = unpack_meta(meta_t.to(torch.int32) & 0xFFFF, g.nb)
-    return mvx, mvy, hc, ftype.contiguous(), dequant_multipliers(qtables_t, ftype, hc, qidx)
+    return mvx, mvy, hc, ftype.contiguous(), frame_multipliers(qtables_t, qidx)
 
 
 def upload_meta(info, g: Geometry, meta, dev):
     """The u16 meta words -> copied to device `dev`, unpacked: (mvx, mvy,
-    hc (F, nb), ftype (F,) int32, qmul (2, 2, 64) int32)."""
+    hc (F, nb), ftype (F,) int32, qmul (F, 3, 64) int32)."""
     return _meta_tables(g, *pageable_copy(dev)([meta.view(np.int16), info["qtables"]]))
 
 
 def upload(host, device="cuda", h2d=None):
-    """`demux_host`'s output -> copied to `device`, with the per-clip tables
-    built there: (geometry, (units, coff, dy, dx, hc, ftype, qmul)), the
-    inputs of `step_frames`. `h2d` copies a list of numpy arrays to the
+    """`demux_host`'s output -> copied to `device`, with the per-frame
+    tables built there: (geometry, (units, coff, dy, dx, hc, ftype, qmul)),
+    the inputs of `step_frames`. `h2d` copies a list of numpy arrays to the
     device (`pageable_copy` unless given; the loader's copies from pinned
     memory); the tables are built on the current stream."""
     info, g, units, coff, meta = host
@@ -310,13 +326,23 @@ def densify_pstep(deltas, vals, f: int, row_span: int) -> torch.Tensor:
 def upload_pstep(host, device="cuda", h2d=None):
     """`demux_host_packed`'s output -> copied to `device` (`h2d` as
     `upload`'s), the tables unpacked there: (geometry, (deltas (n,) int16,
-    vals (n,) int8, mvx, mvy, hc (F, nb), ftype (F,) int32, qmul (2, 2, 64)
+    vals (n,) int8, mvx, mvy, hc (F, nb), ftype (F,) int32, qmul (F, 3, 64)
     int32))."""
-    info, g, deltas, vals, meta = host
+    g, (pstep,) = upload_chunks([host], device, h2d)
+    return g, pstep
+
+
+def upload_chunks(hosts, device="cuda", h2d=None):
+    """`demux_host_packed`'s outputs for the chunks of one stream -> copied
+    to `device` in one `h2d` call, each chunk's tables unpacked there:
+    (geometry, [`upload_pstep`'s tensors of each chunk])."""
+    info, g = hosts[0][:2]
     h2d = h2d or pageable_copy(torch.device(device))
-    d, v, meta_t, qt = h2d([deltas.view(np.int16), vals, meta.view(np.int16),
-                            info["qtables"]])
-    return g, (d, v, *_meta_tables(g, meta_t, qt))
+    arrays = [a for _, _, deltas, vals, meta in hosts
+              for a in (deltas.view(np.int16), vals, meta.view(np.int16))]
+    *per_chunk, qt = h2d(arrays + [info["qtables"]])
+    return g, [(d, v, *_meta_tables(g, m, qt))
+               for d, v, m in zip(per_chunk[0::3], per_chunk[1::3], per_chunk[2::3])]
 
 
 def _densified(g: Geometry, pstep, frames: int = 0):
@@ -330,25 +356,39 @@ def _densified(g: Geometry, pstep, frames: int = 0):
 def upload_packed(host, frames: int = 0, device="cuda"):
     """`demux_host_packed`'s output -> copied to `device` and densified:
     (geometry, (coeffs (max(F, frames), 64, row_span) i16, mvx, mvy, hc
-    (F, nb), ftype (F,) int32, qmul (2, 2, 64) int32))."""
+    (F, nb), ftype (F,) int32, qmul (F, 3, 64) int32))."""
     g, pstep = upload_pstep(host, device)
     return g, _densified(g, pstep, frames)
 
 
-def _dense_canvases(g: Geometry, pstep):
-    """The "dense" route: densify, then K3 over the clip."""
-    coeffs, mvx, mvy, hc, ftype, qmul = _densified(g, pstep)
-    dy, dx, hcm = block_maps(g, mvx, mvy, hc)
-    return seq_frames_dense(coeffs, dy, dx, hcm, ftype, qmul, g.chh, g.cw, g.gly)
+def _dense_canvases(g: Geometry, chunks, prev=None):
+    """The "dense" route: `upload_chunks`' chunks densified and decoded by
+    K3 one at a time, into slices of one (F, chh, cw) output, each from the
+    last canvas of the chunk before it (the first from `prev`, the stream's
+    starting canvas, or zeros). Only one chunk's coefficients are alive at
+    a time; the output is allocated after the first chunk's densify, whose
+    int32 sum is gone by then, so a clip of one chunk peaks no higher than
+    its densify."""
+    sizes = [c[5].shape[0] for c in chunks]
+    out, a = None, 0
+    for chunk, n in zip(chunks, sizes):
+        coeffs, mvx, mvy, hc, ftype, qmul = _densified(g, chunk)
+        if out is None:
+            out = torch.empty((sum(sizes), g.chh, g.cw), dtype=torch.uint8,
+                              device=coeffs.device)
+        seq_frames_dense(coeffs, *block_maps(g, mvx, mvy, hc), ftype, qmul, g.chh, g.cw,
+                         g.gly, g.guw, prev=prev, out=out[a:a + n])
+        del coeffs
+        prev, a = (out[a + n - 1] if n else prev), a + n
+    return out
 
 
 def upload_gops(host, n_gops: int, gop_len: int, device="cuda"):
     """`demux_host_packed`'s output -> K4's inputs for G GOPs of L frames:
     (geometry, F, (coeffs, dy, dx, hc, ftype) each (G, L, ...), qmul).
     The G*L frames are densified, the last GOP padded with all-skip
-    P-frames (ftype 2, mv 0, hc 0); the multipliers come from the unpadded
-    frames. Raises ValueError unless every GOP opens with an I-frame and
-    the last one holds a frame."""
+    P-frames (ftype 2, mv 0, hc 0, multipliers 0). Raises ValueError unless
+    every GOP opens with an I-frame and the last one holds a frame."""
     ftype_h = _frame_meta(host[4], host[1].nb)[0]
     f, n = ftype_h.shape[0], n_gops * gop_len
     if not (n_gops > 0 and gop_len > 0 and n - gop_len < f <= n):
@@ -360,8 +400,8 @@ def upload_gops(host, n_gops: int, gop_len: int, device="cuda"):
 
 
 def _gop_inputs(g: Geometry, pstep, n_gops: int, gop_len: int):
-    """`upload_pstep`'s tensors -> K4's (per-step tensors, qmul) for G GOPs
-    of L frames that hold the stream's F frames."""
+    """`upload_pstep`'s tensors -> K4's (per-step tensors, qmul (G, L, 3,
+    64)) for G GOPs of L frames that hold the stream's F frames."""
     n = n_gops * gop_len
     coeffs, mvx, mvy, hc, ftype, qmul = _densified(g, pstep, n)
     pad = n - ftype.shape[0]
@@ -374,14 +414,14 @@ def _gop_inputs(g: Geometry, pstep, n_gops: int, gop_len: int):
     per_step = (coeffs.view(n_gops, gop_len, 64, -1),
                 *(m.view(n_gops, gop_len, g.gch, g.gcw) for m in maps),
                 padded(ftype, 2).view(n_gops, gop_len))
-    return per_step, qmul
+    return per_step, padded(qmul, 0).view(n_gops, gop_len, 3, 64)
 
 
 def _gops_canvases(g: Geometry, f: int, per_step, qmul):
     """The "gops" route: one call of K4 (L launches), step l decoding frame
     l of every GOP from frame l-1 of the same GOP; the canvases un-stacked
     and cut to F."""
-    out = step_gops(*per_step, qmul, g.chh, g.cw, g.gly)
+    out = step_gops(*per_step, qmul, g.chh, g.cw, g.gly, g.guw)
     return out.view(-1, g.chh, g.cw)[:f]
 
 
@@ -410,12 +450,15 @@ def upload_route(route: Route, device="cuda", h2d=None):
     """The first half of a decode: the route's demux output copied to
     `device` (`h2d` as `upload`'s) and its tables unpacked there, on the
     current stream. -> the route's device tensors: `step_frames`' inputs
-    ("units"), `upload_pstep`'s tensors ("dense", "gops"), None ("frames":
-    that route uploads frame by frame as it decodes)."""
+    ("units"), `upload_pstep`'s tensors ("gops"), a list of them, one per
+    chunk ("dense"), None ("frames": that route uploads frame by frame as it
+    decodes)."""
     if route.kind == "units":
         return upload(route.host, device, h2d)[1]
-    if route.kind in ("dense", "gops"):
+    if route.kind == "gops":
         return upload_pstep(route.host, device, h2d)[1]
+    if route.kind == "dense":
+        return upload_chunks(route.host, device, h2d)[1]
     return None
 
 
@@ -424,14 +467,16 @@ def run_route(route: Route, uploaded, data: bytes, device="cuda"):
     tensors, on the current stream -> (F, chh, cw) u8 canvases. `route.host`
     is not read; `data`, the stream's bytes, only by route "frames"."""
     g = route.g
-    if route.kind == "units":
-        return step_frames(*uploaded, g.chh, g.cw, g.gly)
     if route.kind == "gops":
         return _gops_canvases(g, uploaded[5].shape[0],
                               *_gop_inputs(g, uploaded, *route.gops))
-    if route.kind == "dense":
-        return _dense_canvases(g, uploaded)
-    return decode_frames(data, device)[1]
+    if route.kind == "frames":
+        return decode_frames(data, device)[1]
+    dev = (uploaded[0] if route.kind == "units" else uploaded[0][0]).device
+    prev = initial_canvas(g, dev) if route.leading_p else None
+    if route.kind == "units":
+        return step_frames(*uploaded, g.chh, g.cw, g.gly, g.guw, prev)
+    return _dense_canvases(g, uploaded, prev)
 
 
 def decode_canvases(data: bytes, device="cuda", num_threads: int = 0):
@@ -460,9 +505,7 @@ def decode_packed_gops(host, g: int, l: int, want: str = "rgb", device="cuda"):
     "checksums" (F, 3). The stream must pass `stream_gate`, open a GOP with
     an I-frame every l frames, and fill the last GOP."""
     info, geo, _, _, meta = host
-    gate = stream_gate(*_frame_meta(meta, geo.nb), info["qtables"].shape[0])
-    if gate is not None:
-        raise ValueError(f"gate '{gate}' failed for a {geo.width}x{geo.height} stream")
+    stream_gate(_frame_meta(meta, geo.nb)[1], info["qtables"].shape[0])
     geo, f, per_step, qmul = upload_gops(host, g, l, device)
     return _output(geo, _gops_canvases(geo, f, per_step, qmul), want)
 
@@ -524,10 +567,10 @@ def decode_video_rgb_chunks(data: bytes, max_frames_per_chunk: int = 512,
     (start_frame, (F_chunk, H, W, 3) u8 RGB on `device`).
 
     Each of `chunk_streams`' runs decodes by the route `choose_route` picks
-    for it: a clip whose length alone fails a route's gate
-    ("F*64*row_span < 2^31") passes it chunk by chunk. No chunk is padded.
-    One chunk's coefficients and canvases are alive at a time: the
-    generator holds nothing of a chunk once it has yielded it."""
+    for it (the dense route cuts a long run into chunks of its own). No
+    chunk is padded. One chunk's canvases are alive at a time, which bounds
+    the memory of a long clip's output: the generator holds nothing of a
+    chunk once it has yielded it."""
     for start, chunk in chunk_streams(data, max_frames_per_chunk):
         yield start, decode_video_rgb(chunk, device, num_threads)
 

@@ -11,7 +11,9 @@ the one being written. The decoder is configured by the bitstream: the
 q-tables ride in the header, and per-frame indices pick one per plane.
 
 `FrameDecoder` is the per-frame step itself; the whole-clip decode
-(dataloader.py) also runs it, for streams its K1 path does not take.
+(dataloader.py) runs it in `decode_frames`, which the tests and the chip
+check hold the whole-clip routes to, and for a geometry too large for its
+dense coefficients.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 from pfv_torch import runtime
-from pfv_torch.frame import Geometry, VideoFrame, canvas_layout, geometry, slice_yuv
+from pfv_torch.frame import (Geometry, VideoFrame, canvas_layout, geometry, initial_canvas,
+                             slice_yuv)
 from pfv_torch.kernels.frame_step import FrameStep
 
 PFV_MAGIC = b"PFVIDEO\0"
@@ -115,10 +118,12 @@ def balanced_bounds(starts, frames: int, n: int) -> list[int]:
 
 
 def keyframe_runs(data: bytes, spans, bounds, tails=None):
-    """A stream cut at keyframes into streams of their own, run by run (a
+    """A stream cut before frames into streams of their own, run by run (a
     generator of bytes: the stream's header, the run's packets, `tail`, an
     EOF packet). spans: `scan_packets`' spans; bounds: ascending frame
-    indices, the first 0, every one an I-frame's. Run k holds the packets
+    indices, the first 0: an I-frame's each where every run must decode
+    alone, any frame's where the decoder hands a run the last canvas of the
+    run before it (the dense route's chunks). Run k holds the packets
     from frame bounds[k] up to frame bounds[k + 1] (the first run from the
     first packet, the last to the last): a packet that makes no frame stays
     with the run it lies in. tails[k], where given, goes between run k's
@@ -174,10 +179,7 @@ class FrameDecoder:
 
     def initial_canvas(self) -> torch.Tensor:
         """The framebuffer before the first frame: Y 0, U and V 128."""
-        g = self.g
-        c = torch.zeros((g.chh, g.cw), dtype=torch.uint8, device=self.device)
-        c[g.ly0:, :2 * g.lcw] = 128
-        return c
+        return initial_canvas(self.g, self.device)
 
     def entropy(self, ptype: int, payload):
         """Host: payload -> the staging buffer; returns (intra, q-table
@@ -205,7 +207,9 @@ class FrameDecoder:
         copy; returns `frame`, `entropy`'s result."""
         self._buf.copy_(self._host, non_blocking=True)
         if self._copied is not None:
-            self._copied.record()
+            # the copy runs on the device's current stream, which need not be
+            # the current device's
+            self._copied.record(torch.cuda.current_stream(self.device))
         return frame
 
     def planes(self, frame, out: torch.Tensor, prev: torch.Tensor) -> None:

@@ -46,6 +46,11 @@ class Geometry(NamedTuple):
         return self.cw // 16
 
     @property
+    def guw(self) -> int:
+        """U's block columns in a chroma stripe; V's start there."""
+        return self.lcw // 16
+
+    @property
     def yb(self) -> int:
         return (self.ly0 // 16) * (self.lyw // 16)
 
@@ -70,6 +75,14 @@ def canvas_planes(g: Geometry, canvas):
     c = canvas[..., g.ly0:, :]
     return (canvas[..., :g.ly0, :g.lyw], c[..., :g.lcw],
             c[..., g.lcw:2 * g.lcw])
+
+
+def initial_canvas(g: Geometry, device) -> torch.Tensor:
+    """The framebuffer before a stream's first frame, as a (chh, cw) u8
+    canvas on `device`: Y 0, U and V 128, zeros outside the planes."""
+    c = torch.zeros((g.chh, g.cw), dtype=torch.uint8, device=device)
+    c[g.ly0:, :2 * g.lcw] = 128
+    return c
 
 
 def canvas_layout(g: Geometry):

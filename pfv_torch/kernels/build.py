@@ -82,12 +82,12 @@ def lib() -> ctypes.CDLL:
                 build()
             so = ctypes.CDLL(SO_PATH)
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            so.pfv_step_clip.argtypes = [p] * 8 + [i] * 5 + [p]
+            so.pfv_step_clip.argtypes = [p] * 9 + [i] * 6 + [p]
             so.pfv_step_clip.restype = i
-            so.pfv_dense_seq_clip.argtypes = [p] * 7 + [i] * 5 + [p]
+            so.pfv_dense_seq_clip.argtypes = [p] * 8 + [i] * 6 + [p]
             so.pfv_dense_seq_clip.restype = i
             so.pfv_dense_gops.argtypes = [p, ll, p, ll, ll, p, p, p, ll, ll, p, ll,
-                                          ll, p, p, ll, ll] + [i] * 6 + [p]
+                                          ll, p, ll, ll, p, ll, ll] + [i] * 7 + [p]
             so.pfv_dense_gops.restype = i
             so.pfv_canvas_rgba.argtypes = [p, p] + [i] * 7 + [p]
             so.pfv_canvas_rgba.restype = i

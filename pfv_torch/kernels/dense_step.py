@@ -4,13 +4,15 @@ their plain versions.
 Both decode frames of the fused canvas layout as K1 does, from dense
 coefficients (..., 64, row_span) int16 (row r = row-major slot, column
 s*2*scp + lane of stripe s; `dataloader.densify_pstep` makes them):
-- `seq_frames_dense` (K3) decodes a whole clip, one host call and one
-  launch per frame; frame f predicts from canvas f-1 of its own output;
+- `seq_frames_dense` (K3) decodes a whole clip, or one chunk of it, one
+  host call and one launch per frame; frame f predicts from canvas f-1 of
+  its own output, frame 0 from `prev` (zeros without one);
 - `step_gops` (K4) decodes G GOPs of L frames side by side, one host call
   and one launch per step of all G GOPs; the leading (G, L) axes may be
   strided, so the GOPs are read and written in place; a single step is a
   call on [:, l:l+1] views with `prev`.
-Each call checks its inputs once; launches after a call's first use
+Every frame dequantizes with its own multipliers of Y, U and V (qmul
+(..., 3, 64)). Each call checks its inputs once; launches after a call's first use
 programmatic dependent launch. A CPU tensor goes to the plain version; a
 CUDA tensor launches the kernel or raises.
 """
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from pfv_torch.kernels.step import lanes_per_stripe, reconstruct
+from pfv_torch.kernels.step import check_planes, lanes_per_stripe, reconstruct
 
 MAX_ROW_SPAN = 1 << 24
 MAX_BATCH = 65535  # the grid's z extent
@@ -70,18 +72,16 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _check(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int, gly: int,
-           prev=None, out=None):
+           guw: int, prev=None, out=None):
     """Check a call once, whatever its number of frames: the batch shape
     is ftype's, (F,) or (G, L). Every item contiguous, the maps sharing
     their batch strides, coefficients and canvases 16-byte aligned, the
-    canvases of `out` distinct and apart from `prev` (G, chh, cw), all on
-    one device. Returns row_span."""
+    canvases of `out` distinct and apart from `prev` ((G, chh, cw), or
+    (1, chh, cw) for (F,)), all on one device. Returns row_span."""
     lead = ftype.dim()
     bs = tuple(ftype.shape)
     gch, gcw = chh // 16, cw // 16
-    if chh % 16 or cw % 16 or chh <= 0 or cw <= 0 or not 0 <= gly <= gch:
-        raise ValueError(f"canvas {chh}x{cw} with {gly} luma stripes is not "
-                         "whole 16x16 blocks")
+    check_planes(chh, cw, gly, guw)
     if lead not in (1, 2):
         raise ValueError(f"ftype must be (F,) or (G, L), got {bs}")
     row_span = gch * lanes_per_stripe(cw)
@@ -92,9 +92,9 @@ def _check(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int, gly: int,
             (dy, torch.int8, bs + (gch, gcw), lead),
             (dx, torch.int8, bs + (gch, gcw), lead),
             (hc, torch.uint8, bs + (gch, gcw), lead),
-            (ftype, torch.int32, bs, lead), (qmul, torch.int32, (2, 2, 64), 0)]
+            (ftype, torch.int32, bs, lead), (qmul, torch.int32, bs + (3, 64), lead)]
     if prev is not None:
-        want.append((prev, torch.uint8, bs[:1] + (chh, cw), 1))
+        want.append((prev, torch.uint8, (bs[0] if lead == 2 else 1, chh, cw), 1))
     if out is not None:
         want.append((out, torch.uint8, bs + (chh, cw), lead))
     for t, dtype, shape, n in want:
@@ -136,29 +136,36 @@ def _build_for(t: torch.Tensor):
 
 
 def seq_frames_dense(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int,
-                     gly: int) -> torch.Tensor:
-    """Decode the clip to (F, chh, cw) u8 canvases: one host call, F
-    launches.
+                     gly: int, guw: int, prev=None, out=None) -> torch.Tensor:
+    """Decode the clip to (F, chh, cw) u8 canvases, written into `out` when
+    it is given: one host call, F launches.
 
     coeffs (F, 64, row_span) int16, row_span = gch*2*scp; dy, dx
     (F, gch, gcw) int8 and hc (F, gch, gcw) u8: per-block motion and coded
     maps in canvas order; ftype (F,) int32 (1 = intra, anything else P);
-    qmul (2, 2, 64) int32 multipliers [I/P][luma/chroma][row-major r]; gly:
-    luma stripes. Frame 0 must be intra. All contiguous.
+    qmul (F, 3, 64) int32: frame f's multipliers of Y, U and V [row-major
+    r]; gly: luma stripes; guw: U's block columns in a chroma stripe; prev:
+    the (chh, cw) u8 canvas frame 0 predicts from (zeros when None), which
+    the call before on the same stream may still be writing. All contiguous.
     """
     if ftype.dim() != 1:
         raise ValueError(f"ftype must be (F,), got {tuple(ftype.shape)}")
-    row_span = _check(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly)
-    if not all(t.is_contiguous() for t in (coeffs, dy, dx, hc, ftype)):
+    if out is None:
+        out = torch.empty(tuple(ftype.shape) + (chh, cw), dtype=torch.uint8,
+                          device=coeffs.device)
+    row_span = _check(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly, guw,
+                      None if prev is None else prev[None], out)
+    if not all(t.is_contiguous() for t in (coeffs, dy, dx, hc, ftype, qmul, out)):
         raise ValueError("all inputs must be contiguous")
     if coeffs.device.type == "cpu":
-        return seq_frames_dense_plain(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly)
+        return seq_frames_dense_plain(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly,
+                                      guw, prev, out)
     build = _build_for(coeffs)
     frames = ftype.shape[0]
-    out = torch.empty((frames, chh, cw), dtype=torch.uint8, device=coeffs.device)
     rc = build.launch("pfv_dense_seq_clip", coeffs.device,
-                      *(t.data_ptr() for t in (coeffs, dy, dx, hc, ftype, qmul, out)),
-                      frames, chh, cw, gly, row_span)
+                      *(t.data_ptr() for t in (coeffs, dy, dx, hc, ftype, qmul)),
+                      prev.data_ptr() if prev is not None else None, out.data_ptr(),
+                      frames, chh, cw, gly, guw, row_span)
     if rc:
         raise RuntimeError(f"dense step kernel launch failed: CUDA error {rc}")
     build.count(seq_frames_dense, frames)
@@ -169,36 +176,38 @@ seq_frames_dense.launches = 0
 
 
 def seq_frames_dense_plain(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int,
-                           gly: int) -> torch.Tensor:
+                           gly: int, guw: int, prev=None, out=None) -> torch.Tensor:
     """The plain PyTorch version of `seq_frames_dense`, frame by frame."""
-    out = torch.empty((ftype.shape[0], chh, cw), dtype=torch.uint8,
-                      device=coeffs.device)
+    if out is None:
+        out = torch.empty((ftype.shape[0], chh, cw), dtype=torch.uint8,
+                          device=coeffs.device)
     for f, ft in enumerate(ftype.tolist()):
-        out[f] = reconstruct(_stripes(coeffs[f], chh), qmul, gly, ft == 1,
-                             out[f - 1] if f else None, dy[f], dx[f], hc[f])
+        out[f] = reconstruct(_stripes(coeffs[f], chh), qmul[f], gly, guw, ft == 1,
+                             out[f - 1] if f else prev, dy[f], dx[f], hc[f])
     return out
 
 
 def step_gops(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int, gly: int,
-              prev=None, out=None) -> torch.Tensor:
+              guw: int, prev=None, out=None) -> torch.Tensor:
     """Decode G GOPs of L frames side by side -> (G, L, chh, cw) u8
     canvases, written into `out` when it is given: one host call, L
     launches. Step l decodes frame l of every GOP from frame l-1 of the
     same GOP; step 0 from `prev` (G, chh, cw) u8, or from zeros.
 
     coeffs (G, L, 64, row_span) int16, dy, dx, hc (G, L, gch, gcw), ftype
-    (G, L) int32: as `seq_frames_dense`'s per frame. The two leading axes
-    of every tensor but qmul may be strided (dy, dx and hc alike); each
-    frame is contiguous, and coefficients and canvases 16-byte aligned.
+    (G, L) int32, qmul (G, L, 3, 64) int32: as `seq_frames_dense`'s per
+    frame. The two leading axes of every tensor may be strided (dy, dx and
+    hc alike); each frame is contiguous, and coefficients and canvases
+    16-byte aligned.
     """
     if ftype.dim() != 2:
         raise ValueError(f"ftype must be (G, L), got {tuple(ftype.shape)}")
     if out is None:
         out = torch.empty(tuple(ftype.shape) + (chh, cw), dtype=torch.uint8,
                           device=coeffs.device)
-    row_span = _check(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly, prev, out)
+    row_span = _check(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly, guw, prev, out)
     if coeffs.device.type == "cpu":
-        return step_gops_plain(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly,
+        return step_gops_plain(coeffs, dy, dx, hc, ftype, qmul, chh, cw, gly, guw,
                                prev, out)
     build = _build_for(coeffs)
     gops, steps = ftype.shape
@@ -208,8 +217,8 @@ def step_gops(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int, gly: int,
             prev.stride(0) if prev is not None else 0,
             coeffs.data_ptr(), *coeffs.stride()[:2], dy.data_ptr(), dx.data_ptr(),
             hc.data_ptr(), *dy.stride()[:2], ftype.data_ptr(), *ftype.stride(),
-            qmul.data_ptr(), out.data_ptr(), *out.stride()[:2], gops, steps, chh,
-            cw, gly, row_span)
+            qmul.data_ptr(), *qmul.stride()[:2], out.data_ptr(), *out.stride()[:2],
+            gops, steps, chh, cw, gly, guw, row_span)
         if rc:
             raise RuntimeError(f"dense step kernel launch failed: CUDA error {rc}")
         build.count(step_gops, steps)
@@ -220,7 +229,7 @@ step_gops.launches = 0
 
 
 def step_gops_plain(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int, gly: int,
-                    prev=None, out=None) -> torch.Tensor:
+                    guw: int, prev=None, out=None) -> torch.Tensor:
     """The plain PyTorch version of `step_gops`, step by step."""
     gops, steps = ftype.shape
     if out is None:
@@ -230,13 +239,13 @@ def step_gops_plain(coeffs, dy, dx, hc, ftype, qmul, chh: int, cw: int, gly: int
         prev = torch.zeros((gops, chh, cw), dtype=torch.uint8, device=coeffs.device)
     for l in range(steps):
         step_frames_batched_plain(prev, coeffs[:, l], dy[:, l], dx[:, l], hc[:, l],
-                                  ftype[:, l], qmul, chh, cw, gly, out[:, l])
+                                  ftype[:, l], qmul[:, l], chh, cw, gly, guw, out[:, l])
         prev = out[:, l]
     return out
 
 
 def step_frames_batched_plain(prev, coeffs, dy, dx, hc, ftype, qmul, chh: int,
-                              cw: int, gly: int, out=None) -> torch.Tensor:
+                              cw: int, gly: int, guw: int, out=None) -> torch.Tensor:
     """One frame step for each of B frames -> (B, chh, cw) u8 canvases,
     written into `out` when it is given: the plain version of one step of
     `step_gops`, each frame from its explicit previous canvas prev[b].
@@ -248,6 +257,6 @@ def step_frames_batched_plain(prev, coeffs, dy, dx, hc, ftype, qmul, chh: int,
         out = torch.empty((ftype.shape[0], chh, cw), dtype=torch.uint8,
                           device=coeffs.device)
     for b, ft in enumerate(ftype.tolist()):
-        out[b] = reconstruct(_stripes(coeffs[b], chh), qmul, gly, ft == 1,
+        out[b] = reconstruct(_stripes(coeffs[b], chh), qmul[b], gly, guw, ft == 1,
                              prev[b], dy[b], dx[b], hc[b])
     return out

@@ -7,13 +7,16 @@ and uploads it while the consumer's thread runs video i's frame step and
 K2, so the steady rate is set by the slower of the two and not by their
 sum. On a CUDA device the worker uploads on a stream of its own: it packs
 the used prefix of the demux's arrays into one pinned staging buffer, copies
-that to the device in one asynchronous copy, builds the per-clip tables on
+that to the device in one asynchronous copy, builds the per-frame tables on
 the same stream and records an event; the consumer's stream waits on the
 event, so the copy of video i+1 runs beside the kernels of video i. Frames
 are yielded as (F, H, W, 3) uint8 tensors on the device, what
 `decode_video_rgb` returns for the same bytes; nothing comes back to the
-host. Each video takes the route its own geometry and packets give it; a
-stream of route "frames" decodes in the consumer, frame by frame.
+host. Each video takes the route its own geometry and packets give it
+(the chunks of a "dense" stream are all uploaded by the worker and stepped
+one at a time by the consumer); a stream of route "frames", which only a
+geometry too large for the dense coefficients takes, decodes in the
+consumer, frame by frame.
 """
 
 from __future__ import annotations
@@ -58,13 +61,23 @@ class PinnedStager:
             host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
         dev = torch.empty(total, dtype=torch.uint8, device=self.device)
         dev.copy_(self._pinned[:total], non_blocking=True)
-        self._copied.record()
+        self._copied.record(torch.cuda.current_stream(self.device))
         return [dev[off:off + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
                 for a, off in zip(arrays, offsets)]
 
     def wait(self) -> None:
         """Block until the last copy has read the pinned buffer."""
         self._copied.synchronize()
+
+
+def _tensors(uploaded):
+    """The tensors of `upload_route`'s result: a tuple of tensors, a list of
+    such tuples (one per chunk), or None."""
+    if isinstance(uploaded, torch.Tensor):
+        yield uploaded
+    elif uploaded is not None:
+        for t in uploaded:
+            yield from _tensors(t)
 
 
 class VideoDataLoader:
@@ -153,7 +166,7 @@ class VideoDataLoader:
             current.wait_event(ready)
             # allocated on the worker's stream, read on this one: the
             # allocator must not hand the memory out before these kernels end
-            for t in uploaded or ():
+            for t in _tensors(uploaded):
                 t.record_stream(current)
         with self._stage("decode"):
             return _output(route.g, run_route(route, uploaded, data, self._device), "rgb")

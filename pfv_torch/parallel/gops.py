@@ -26,9 +26,9 @@ from pfv_torch.parallel.streams import decode_stream_batch, joined
 def skip_pframe_packet(width: int, height: int) -> bytes:
     """A P-frame packet in which every block is skipped: a 16-byte all-zero
     frequency table (no symbol is ever read, and an empty Huffman tree is
-    legal), the encoder's P-frame q-table indices (2, 3, 3), which keep the
-    stream's indices uniform for the frame steps' gates, then two zero
-    header bits per block, byte-aligned. It decodes as a copy of the frame
+    legal), the encoder's P-frame q-table indices (2, 3, 3), as the JAX
+    package's pad packet has them, then two zero header bits per block,
+    byte-aligned. It decodes as a copy of the frame
     before it."""
     payload = bytes(16) + bytes(INTER_Q) + bytes((2 * geometry(width, height).nb + 7) // 8)
     return struct.pack("<BI", 2, len(payload)) + payload

@@ -4,8 +4,8 @@ pfv_tpu/parallel/streams.py).
 PFV streams are independent, so the several-device mapping is data
 parallel: the batch is cut into contiguous groups, one per device, and each
 device decodes its group through the whole-clip routes of
-`pfv_torch.dataloader` (K1, or K3 / K4, or the per-frame step: each stream
-takes the route its own packets give it), in a thread and on a stream of
+`pfv_torch.dataloader` (K1 up to width 4096, K3 or K4 above: each stream
+takes the route its own geometry and packets give it), in a thread and on a stream of
 its own. The one statistic over all devices, the mean of the luma, is the
 mean of the devices' means, brought to the first device.
 

@@ -34,14 +34,16 @@ def container(width: int, height: int, qtables: np.ndarray, packets,
 
 def random_stream(width: int, height: int, frames: int, seed: int,
                   keyframes: int = 1 << 30, fps: int = 30, max_mv: int = 12,
-                  coded=(0.5,)) -> bytes:
+                  coded=(0.5,), qidx=None) -> bytes:
     """Frames of seeded random sparse coefficients (about one slot in twenty
     nonzero, |v| <= 60): an I-frame every `keyframes` frames from the first,
     P-frames between them with random coded flags (P-frame k codes a block
     with probability coded[k % len(coded)]) and random motion vectors of
     |v| <= max_mv (at most 63, the format's), cut so that every window stays
     inside its padded plane, as the demux demands. Four random q-tables;
-    I-frames use (0, 1, 1), P-frames (2, 3, 3)."""
+    frame f takes the (Y, U, V) q-table indices qidx[f % len(qidx)] where
+    `qidx` is given, else (0, 1, 1) for an I-frame and (2, 3, 3) for a
+    P-frame."""
     rng = np.random.default_rng(seed)
     g = geometry(width, height)
     qtables = rng.integers(1, 40, size=(4, 64))
@@ -54,15 +56,16 @@ def random_stream(width: int, height: int, frames: int, seed: int,
     for f in range(frames):
         coeffs = rng.integers(-60, 61, size=(g.nb, 256))
         coeffs[rng.random(coeffs.shape) > 0.05] = 0
+        q = qidx[f % len(qidx)] if qidx else None
         if f % keyframes == 0:
-            packets.append((1, runtime.encode_iframe_payload(coeffs, (0, 1, 1))))
+            packets.append((1, runtime.encode_iframe_payload(coeffs, q or (0, 1, 1))))
             continue
         mvx = np.clip(rng.integers(-max_mv, max_mv + 1, g.nb), lo_x, hi_x).astype(np.int8)
         mvy = np.clip(rng.integers(-max_mv, max_mv + 1, g.nb), lo_y, hi_y).astype(np.int8)
         hc = (rng.random(g.nb) < coded[n_p % len(coded)]).astype(np.uint8)
         n_p += 1
         packets.append((2, runtime.encode_pframe_payload(coeffs, mvx, mvy, hc,
-                                                         (2, 3, 3))))
+                                                         q or (2, 3, 3))))
     return container(width, height, qtables, packets, fps)
 
 

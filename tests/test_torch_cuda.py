@@ -25,7 +25,7 @@ from pfv_torch.encoding import encode_video
 from pfv_torch.kernels.dense_step import (seq_frames_dense, seq_frames_dense_plain,
                                           step_frames_batched_plain, step_gops,
                                           step_gops_plain)
-from pfv_torch.frame import canvas_layout, canvas_planes
+from pfv_torch.frame import canvas_layout, canvas_planes, initial_canvas
 from pfv_torch.kernels.fdct import FrameEncode, fdct_blocks, fdct_blocks_plain
 from pfv_torch.kernels.frame_step import FrameStep, plane_layout
 from pfv_torch.kernels.idct import decode_blocks, decode_blocks_plain
@@ -54,9 +54,9 @@ def test_step_kernel_matches_plain_and_reference(cuda, path):
     data = open(os.path.join(ROOT, path), "rb").read()
     g, args = tdl.upload(tdl.demux_host(data), cuda)
     before = step_frames.launches
-    got = step_frames(*args, g.chh, g.cw, g.gly)
+    got = step_frames(*args, g.chh, g.cw, g.gly, g.guw)
     assert step_frames.launches - before == args[5].shape[0]
-    assert torch.equal(got, step_frames_plain(*args, g.chh, g.cw, g.gly))
+    assert torch.equal(got, step_frames_plain(*args, g.chh, g.cw, g.gly, g.guw))
     _, ry, ru, rv, _ = runtime.ref_decode(data)
     for p, r in zip(tdl.slice_yuv(g, got), (ry, ru, rv)):
         assert np.array_equal(p.cpu().numpy(), r)
@@ -98,7 +98,9 @@ def test_kernels_raise_on_mixed_devices(cuda):
     data = open(os.path.join(ROOT, CLIPS[1]), "rb").read()
     g, args = tdl.upload(tdl.demux_host(data), cuda)
     with pytest.raises(ValueError):
-        step_frames(args[0], args[1].cpu(), *args[2:], g.chh, g.cw, g.gly)
+        step_frames(args[0], args[1].cpu(), *args[2:], g.chh, g.cw, g.gly, g.guw)
+    with pytest.raises(ValueError):
+        step_frames(*args, g.chh, g.cw, g.gly, g.guw, initial_canvas(g, "cpu"))
     # K8: a source, the canvas or a header row on the host
     g = tdl.geometry(64, 48)
     src, motion, _, prev = _frame_encode_inputs(g, 1, False, cuda)
@@ -165,17 +167,100 @@ def test_decoder_matches_reference(cuda, path):
 
 
 def test_fallback_stream_runs_k5_k7_and_not_k1(cuda):
-    """The per-frame fallback: the frame step (K5 + K7 as one kernel) once
-    per frame, K1, K3, K5 and K7 never."""
+    """The per-frame path (`decode_frames`, which the whole-clip routes are
+    held to): the frame step (K5 + K7 as one kernel) once per frame, K1,
+    K3, K5 and K7 never. The whole-clip decode of the same stream, a
+    leading P-frame, takes K3 from the starting canvas, once per frame."""
     info, packets = split_packets(synth.random_stream(4112, 32, 4, seed=12))
     data = synth.container(4112, 32, info["qtables"], packets[1:])
-    assert tdl.choose_route(data).gate == "first frame is intra"
+    route = tdl.choose_route(data)
+    assert (route.kind, route.leading_p) == ("dense", True)
     counters = (step_frames, seq_frames_dense, decode_blocks, mc_reconstruct, FrameStep)
     before = [fn.launches for fn in counters]
-    y, u, v = tdl.decode_video_yuv(data, device="cuda")
+    _, frames = tdl.decode_frames(data, device="cuda")
     assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 0, 0, 3]
-    for p, r in zip((y, u, v), runtime.ref_decode(data)[1:4]):
+    before = [fn.launches for fn in counters]
+    y, u, v = tdl.decode_video_yuv(data, device="cuda")
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 3, 0, 0, 0]
+    for p, q, r in zip((y, u, v), tdl.slice_yuv(route.g, frames),
+                       runtime.ref_decode(data)[1:4]):
+        assert np.array_equal(p.cpu().numpy(), r) and torch.equal(p, q)
+
+
+QIDX = [(0, 1, 2), (3, 2, 1), (1, 3, 0), (2, 0, 3), (0, 0, 1)]
+
+
+@pytest.mark.parametrize("w,h,leading", [(512, 384, "I"), (512, 384, "P"), (4112, 64, "I"),
+                                         (4112, 64, "P")])
+def test_frame_steps_take_per_frame_tables_and_a_starting_canvas(cuda, w, h, leading):
+    """K1 (512 wide) or K3 (4112) against the plain version, q-table indices
+    per frame and plane (U != V), and with a leading P-frame from a random
+    starting canvas; the whole-clip decode against the reference."""
+    data = synth.random_stream(w, h, 6, seed=w + h, keyframes=4, qidx=QIDX)
+    if leading == "P":
+        info, packets = split_packets(data)
+        data = synth.container(w, h, info["qtables"], packets[1:])
+    g = tdl.geometry(w, h)
+    dims = (g.chh, g.cw, g.gly, g.guw)
+    prev = torch.randint(0, 256, (g.chh, g.cw), dtype=torch.uint8, device=cuda)
+    if w <= 4096:
+        _, args = tdl.upload(tdl.demux_host(data), cuda)
+        fn, plain, n = step_frames, step_frames_plain, args[5].shape[0]
+    else:
+        _, (coeffs, mvx, mvy, hc, ftype, qmul) = tdl.upload_packed(
+            tdl.demux_host_packed(data), device=cuda)
+        args = (coeffs, *tdl.block_maps(g, mvx, mvy, hc), ftype, qmul)
+        fn, plain, n = seq_frames_dense, seq_frames_dense_plain, ftype.shape[0]
+    for start in (None, prev):
+        before = fn.launches
+        got = fn(*args, *dims, prev=start)
+        assert fn.launches - before == n
+        assert torch.equal(got, plain(*args, *dims, prev=start))
+    for p, r in zip(tdl.decode_video_yuv(data, device="cuda"), runtime.ref_decode(data)[1:4]):
         assert np.array_equal(p.cpu().numpy(), r)
+
+
+def test_chunked_dense_route_launches_k3_per_frame(cuda, monkeypatch):
+    """A 4112x64 stream past the (lowered) positions cap: three chunks, K3
+    once per frame, each chunk from the last canvas of the one before."""
+    data = synth.random_stream(4112, 64, 8, seed=34, keyframes=5, qidx=QIDX)
+    g = tdl.geometry(4112, 64)
+    monkeypatch.setattr(tdl, "MAX_POSITIONS", 3 * 64 * tdl.pstep_tables(g)[2] + 1)
+    route = tdl.choose_route(data)
+    assert (route.kind, len(route.host)) == ("dense", 3)
+    counters = (step_frames, FrameStep, seq_frames_dense, step_gops)
+    before = [fn.launches for fn in counters]
+    got = tdl.decode_video_yuv(data, device="cuda")
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 8, 0]
+    for p, r in zip(got, runtime.ref_decode(data)[1:4]):
+        assert np.array_equal(p.cpu().numpy(), r)
+
+
+def test_staging_events_record_on_the_copy_device(cuda):
+    """The Decoder's and the loader's staging copies run on their device's
+    stream; the event behind each must be recorded there too, also while
+    another card is current (the last card while the first is current; on
+    a machine with one card, that one)."""
+    from pfv_torch.loader import PinnedStager
+
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    data = synth.random_stream(512, 384, 5, seed=81, keyframes=3)
+    assert torch.cuda.current_device() == 0
+    dec = Decoder(io.BytesIO(data), device=dev)
+    got = []
+    while dec.advance_frame(got.append):
+        pass
+    assert dec._frames._copied.device == dev
+    _, frames = tdl.decode_frames(data, device=dev)
+    stager = PinnedStager(dev)
+    (copied,) = stager([np.arange(1000, dtype=np.int32)])
+    assert stager._copied.device == dev
+    assert copied.device == dev and copied[999].item() == 999
+    for i, (p, r) in enumerate(zip(tdl.slice_yuv(tdl.geometry(512, 384), frames),
+                                   runtime.ref_decode(data)[1:4])):
+        assert np.array_equal(p.cpu().numpy(), r)
+        assert all(np.array_equal(getattr(f, ("plane_y", "plane_u", "plane_v")[i]), r[k])
+                   for k, f in enumerate(got))
 
 
 def _frame_step_inputs(g, seed, intra, cuda):
@@ -461,7 +546,8 @@ def test_k3_matches_plain_and_reference(cuda, source):
         data = open(os.path.join(ROOT, source), "rb").read()
     g, (coeffs, mvx, mvy, hc, ftype, qmul) = tdl.upload_packed(
         tdl.demux_host_packed(data), device=cuda)
-    args = (coeffs, *tdl.block_maps(g, mvx, mvy, hc), ftype, qmul, g.chh, g.cw, g.gly)
+    args = (coeffs, *tdl.block_maps(g, mvx, mvy, hc), ftype, qmul, g.chh, g.cw, g.gly,
+            g.guw)
     before = seq_frames_dense.launches
     got = seq_frames_dense(*args)
     assert seq_frames_dense.launches - before == ftype.shape[0]
@@ -481,9 +567,9 @@ def test_k4_matches_plain_over_gops(cuda):
     first = prev.clone()
     before = step_gops.launches
     for l in range(3):
-        step_gops(*(t[:, l:l + 1] for t in per_step), qmul, g.chh, g.cw, g.gly,
-                  prev=prev, out=out[:, l:l + 1])
-        args = (prev, *(t[:, l] for t in per_step), qmul, g.chh, g.cw, g.gly)
+        step_gops(*(t[:, l:l + 1] for t in per_step), qmul[:, l:l + 1], g.chh, g.cw,
+                  g.gly, g.guw, prev=prev, out=out[:, l:l + 1])
+        args = (prev, *(t[:, l] for t in per_step), qmul[:, l], g.chh, g.cw, g.gly, g.guw)
         assert torch.equal(out[:, l], step_frames_batched_plain(*args))
         prev = out[:, l]
     assert step_gops.launches - before == 3
@@ -491,10 +577,10 @@ def test_k4_matches_plain_over_gops(cuda):
     for p, r in zip(tdl.slice_yuv(g, canv), runtime.ref_decode(data)[1:4]):
         assert np.array_equal(p.cpu().numpy(), r)
     # the whole-GOP entry: one call, three launches, the same canvases
-    whole = step_gops(*per_step, qmul, g.chh, g.cw, g.gly, prev=first)
+    whole = step_gops(*per_step, qmul, g.chh, g.cw, g.gly, g.guw, prev=first)
     assert step_gops.launches - before == 6
     assert torch.equal(whole, out)
-    assert torch.equal(whole, step_gops_plain(*per_step, qmul, g.chh, g.cw, g.gly,
+    assert torch.equal(whole, step_gops_plain(*per_step, qmul, g.chh, g.cw, g.gly, g.guw,
                                               prev=first))
 
 
@@ -533,7 +619,7 @@ def test_frame_steps_exact_at_the_edges(cuda, name):
     outs = []
     if route.kind == "units":
         g, args = tdl.upload(route.host, cuda)
-        dims = (g.chh, g.cw, g.gly)
+        dims = (g.chh, g.cw, g.gly, g.guw)
         got = step_frames(*args, *dims)
         assert torch.equal(got, step_frames_plain(*args, *dims))
         outs.append(got)
@@ -543,7 +629,7 @@ def test_frame_steps_exact_at_the_edges(cuda, name):
         assert route.kind == "gops"
         g, (coeffs, mvx, mvy, hc, ftype, qmul) = tdl.upload_packed(route.host, device=cuda)
         maps = tdl.block_maps(g, mvx, mvy, hc)
-        dims = (g.chh, g.cw, g.gly)
+        dims = (g.chh, g.cw, g.gly, g.guw)
         got = seq_frames_dense(coeffs, *maps, ftype, qmul, *dims)
         assert torch.equal(got, seq_frames_dense_plain(coeffs, *maps, ftype, qmul, *dims))
         outs.append(got)

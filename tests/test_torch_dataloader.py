@@ -7,16 +7,18 @@ Clips: those of test_units_kernel.py (256x128 with an I-frame mid-stream,
 128x96 with one keyframe, q0 with multi-chunk tiles), plus 136x90, whose
 width is not a multiple of 128: only the port and ref_decode take it.
 
-Fault streams, which the frame steps' gates refuse and which decode frame
-by frame (K5 + K7) instead: the 128x96 clip with its I-packet re-encoded on
-q-table indices (0, 1, 3), the same clip without its I-packet (the first
-frame is P), and a 4112x32 stream built from runtime payloads without its
-I-packet. The JAX package takes them through its per-block XLA paths.
+Streams the TPU kernels' contracts refuse, which the port's frame steps
+take: the 128x96 clip with its I-packet re-encoded on q-table indices
+(0, 1, 3), the same clip without its I-packet (the first frame is P), and a
+4112x32 stream built from runtime payloads without its I-packet. The JAX
+package takes them through its per-block XLA paths.
 
 Streams wider than K1 takes (2*scp > 1024): 4112x32 with one keyframe
 (route "dense", K3) and with one every 3 frames (route "gops", K4), against
-ref_decode and the JAX package, and a clip too long for the dense
-positions, which falls back by name."""
+ref_decode and the JAX package; streams past the dense route's positions
+cap (lowered here) cut into 2-4 chunks: inside a GOP, at a keyframe, at a
+drop frame, with one keyframe, with a leading P-frame, all on q-table
+indices per frame and plane."""
 
 from __future__ import annotations
 
@@ -129,19 +131,20 @@ def test_rgba_rgb_checksums_match_jax_units_path(clips):
 
 
 def test_gates_raise_by_name():
-    g = tdl.geometry(4112, 128)  # 4096 is the widest that fits
-    ft, qi = np.array([1, 2], np.uint8), np.array([[0, 1, 1], [2, 3, 3]], np.uint8)
-    assert tdl.failed_gate(g) == tdl.failed_gate(g, ft, qi, 4) == "2*scp <= 1024"
-    g = tdl.geometry(128, 96)
-    assert tdl.failed_gate(g) is None and tdl.failed_gate(g, ft, qi, 4) is None
-    assert tdl.failed_gate(g, ft[::-1], qi, 4) == "first frame is intra"
-    uniform = "uniform q indices per frame type, U == V"
-    assert tdl.failed_gate(g, ft, np.array([[0, 1, 2], [2, 3, 3]], np.uint8), 4) == uniform
-    assert tdl.failed_gate(g, np.array([1, 2, 2], np.uint8),
-                           np.array([[0, 1, 1], [2, 3, 3], [3, 3, 3]], np.uint8),
-                           4) == uniform
+    """The gates left are the geometry's: K1's lanes and the dense rows; on
+    the frames only the q-table index range, which raises."""
+    assert tdl.failed_gate(tdl.geometry(4112, 128)) == "2*scp <= 1024"  # 4096 fits
+    assert tdl.failed_gate(tdl.geometry(4096, 128)) is None
+    assert tdl.dense_gate(tdl.geometry(4112, 128)) is None
+    assert tdl.dense_gate(tdl.geometry(32768, 32768)) == "row_span < 2^24"
+    qi = np.array([[0, 1, 2], [2, 3, 3], [3, 0, 1]], np.uint8)  # per frame, U != V
+    assert tdl.stream_gate(qi, 4) is None
     with pytest.raises(ValueError, match="out of range"):
-        tdl.failed_gate(g, ft, qi, 3)
+        tdl.stream_gate(qi, 3)
+    info, packets = split_packets(synth.random_stream(64, 32, 2, seed=3))
+    bad = synth.container(64, 32, info["qtables"][:3], packets)  # P-frames use table 3
+    with pytest.raises(ValueError, match="out of range"):
+        tdl.choose_route(bad)
 
 
 def test_port_never_imports_jax(clips, tmp_path):
@@ -166,10 +169,10 @@ def test_port_never_imports_jax(clips, tmp_path):
 
 
 FAULTS = {
-    # name: the K1 gate the stream fails
-    "128x96_q013": "uniform q indices per frame type, U == V",
-    "128x96_first_p": "first frame is intra",
-    "4112x32": "first frame is intra",
+    # name: (the TPU kernels' contract the stream fails, the port's route)
+    "128x96_q013": ("uniform q indices per frame type, U == V", "units"),
+    "128x96_first_p": ("first frame is intra", "units"),
+    "4112x32": ("first frame is intra", "dense"),
 }
 
 
@@ -197,11 +200,22 @@ def _wide_without_first(seed):
 
 @pytest.mark.parametrize("name", list(FAULTS))
 def test_fault_streams_take_the_frames_path_by_gate(fault_streams, name):
-    route = tdl.choose_route(fault_streams[name])
-    assert route.gate == FAULTS[name] and route.host is None
-    assert route.kind == "frames"
-    with pytest.raises(ValueError, match=f"gate '{re.escape(FAULTS[name])}'"):
-        tdl.demux_host(fault_streams[name])
+    """No gate sends these streams frame by frame any more: each takes its
+    geometry's route, a leading P-frame from the starting canvas."""
+    data = fault_streams[name]
+    contract, kind = FAULTS[name]
+    route = tdl.choose_route(data)
+    assert (route.kind, route.gate) == (kind, None) and route.host is not None
+    assert route.leading_p == (contract == "first frame is intra")
+    if kind == "units":
+        assert tdl.demux_host(data)[2].shape == route.host[2].shape
+    else:
+        with pytest.raises(ValueError, match=re.escape("gate '2*scp <= 1024'")):
+            tdl.demux_host(data)
+    _, canvases = tdl.decode_canvases(data, device="cpu")
+    _, frames = tdl.decode_frames(data, device="cpu")
+    for a, b in zip(tdl.slice_yuv(route.g, canvases), tdl.slice_yuv(route.g, frames)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("name", list(FAULTS))
@@ -266,18 +280,93 @@ def test_wide_streams_take_the_dense_routes(name):
         assert torch.equal(a, b)
 
 
-def test_dense_positions_limit_is_a_named_gate():
-    """4112x1024: 64*row_span = 7,864,320, so 274 frames pass 2^31; the
-    P-frames repeat one packet, and the route is chosen before any demux."""
+def test_dense_positions_limit_is_a_named_gate(monkeypatch):
+    """The positions' limits no longer gate a route; they size the dense
+    route's chunks. 4112x1024: 64*row_span = 7,864,320, so 273 frames fit
+    int32 and 162 CHUNK_POSITIONS; 8K UHD: 24. A 4112x1024 stream whose
+    P-frames repeat one packet, with the int32 limit lowered to 2 frames,
+    is demuxed in chunks of 2 frames, the last chunk opening with a
+    P-packet; only a geometry past the 24-bit rows goes frame by frame."""
     g = tdl.geometry(4112, 1024)
     assert 64 * tdl.pstep_tables(g)[2] == 7864320
+    assert tdl.dense_chunk_frames(g) == 162
+    assert tdl.dense_chunk_frames(tdl.geometry(7680, 4320)) == 24
+    with monkeypatch.context() as mp:
+        mp.setattr(tdl, "CHUNK_POSITIONS", 1 << 40)
+        assert tdl.dense_chunk_frames(g) == 273
     info, packets = split_packets(synth.random_stream(4112, 1024, 2, seed=5))
-    for frames, kind, gate in ((273, "dense", None),
-                               (274, "frames", "F*64*row_span < 2^31")):
-        data = synth.container(4112, 1024, info["qtables"],
-                               packets[:1] + packets[1:] * (frames - 1))
-        assert tdl.dense_gate(g, frames) == gate
-        if gate is not None:
-            route = tdl.choose_route(data)
-            assert (route.kind, route.gate, route.host) == (kind, gate, None)
-    assert tdl.dense_gate(tdl.geometry(32768, 32768), 1) == "row_span < 2^24"
+    data = synth.container(4112, 1024, info["qtables"], packets[:1] + packets[1:] * 4)
+    monkeypatch.setattr(tdl, "MAX_POSITIONS", 2 * 7864320 + 1)
+    route = tdl.choose_route(data)
+    assert (route.kind, route.gate, route.leading_p) == ("dense", None, False)
+    metas = [tdl._frame_meta(h[4], g.nb) for h in route.host]
+    assert [m[0].tolist() for m in metas] == [[1, 2], [2, 2], [2]]
+    want = runtime.demux_file_sparse_packed(data, pstep_tables=tdl.pstep_tables(g))
+    assert np.array_equal(np.concatenate([m[1] for m in metas]), want[5])
+    huge = synth.container(32768, 32768, info["qtables"], [])
+    route = tdl.choose_route(huge)
+    assert (route.kind, route.gate, route.host) == ("frames", "row_span < 2^24", None)
+
+
+def _with_extra_packets(data: bytes, at: int) -> bytes:
+    """`data` with a drop frame and an unknown packet after packet `at`."""
+    info, packets = split_packets(data)
+    packets = packets[:at + 1] + [(1, b""), (7, b"\x01\x02\x03")] + packets[at + 1:]
+    return synth.container(info["width"], info["height"], info["qtables"], packets)
+
+
+# (Y, U, V) q-table indices, frame f taking QIDX[f % 5]
+QIDX = [(0, 1, 2), (3, 2, 1), (1, 3, 0), (2, 0, 3), (0, 0, 1)]
+CHUNKED = {
+    # name: (w, h, frames, keyframe interval, frames per chunk, chunks)
+    "4112x16_cut_in_gop": (4112, 16, 9, 4, 3, 3),
+    "4112x16_cut_at_key": (4112, 16, 8, 4, 4, 2),
+    "4112x32_one_key": (4112, 32, 7, 1 << 30, 2, 4),
+    "4112x32_drop_at_cut": (4112, 32, 6, 4, 3, 2),
+    "4112x32_first_p": (4112, 32, 7, 3, 3, 3),
+}
+
+
+def chunked_stream(name: str) -> bytes:
+    """The CHUNKED stream `name`, on QIDX: "drop_at_cut" with a drop frame
+    and an unknown packet right before its cut, "first_p" without its
+    I-packet."""
+    w, h, f, key, _, _ = CHUNKED[name]
+    data = synth.random_stream(w, h, f + name.endswith("first_p"), seed=f, keyframes=key,
+                               qidx=QIDX)
+    if name.endswith("drop_at_cut"):
+        return _with_extra_packets(data, CHUNKED[name][4] - 1)
+    if name.endswith("first_p"):
+        info, packets = split_packets(data)
+        return synth.container(w, h, info["qtables"], packets[1:])
+    return data
+
+
+@pytest.mark.parametrize("name", list(CHUNKED))
+def test_chunked_dense_route_matches_jax_and_reference(name, monkeypatch):
+    """A stream past the positions cap takes the dense route in 2-4 chunks,
+    each chunk's K3 from the last canvas of the one before: YUV, RGBA, RGB
+    and checksums equal `ref_decode`, YUV the JAX package's."""
+    w, h, f, _, per_chunk, n_chunks = CHUNKED[name]
+    data = chunked_stream(name)
+    g = tdl.geometry(w, h)
+    monkeypatch.setattr(tdl, "MAX_POSITIONS", per_chunk * 64 * tdl.pstep_tables(g)[2] + 1)
+    route = tdl.choose_route(data)
+    assert (route.kind, route.gate, len(route.host)) == ("dense", None, n_chunks)
+    assert route.leading_p == name.endswith("first_p")
+    assert [tdl._frame_meta(c[4], g.nb)[0].size for c in route.host] == \
+        [min(per_chunk, f - a) for a in range(0, f, per_chunk)]
+    ry, ru, rv = runtime.ref_decode(data)[1:4]
+    assert ry.shape[0] == f
+    got = [p.numpy() for p in pfv_torch.decode_video_yuv(data, device="cpu")]
+    want = [np.asarray(p) for p in jdl.decode_video_yuv(data)]
+    for p, q, r in zip(got, want, (ry, ru, rv)):
+        assert p.shape == r.shape and np.array_equal(p, r) and np.array_equal(p, q)
+    rgba = pfv_torch.decode_video_rgba(data, device="cpu")
+    up = [np.repeat(np.repeat(p, 2, axis=1), 2, axis=2)[:, :ry.shape[1], :ry.shape[2]]
+          for p in (ru, rv)]
+    rgb = np.asarray(jdl.yuv_to_rgb(ry, *up))
+    assert np.array_equal(pfv_torch.rgba_view(rgba)[..., :3].numpy(), rgb)
+    assert np.array_equal(pfv_torch.decode_video_rgb(data, device="cpu").numpy(), rgb)
+    sums = pfv_torch.decode_video_checksums(data, device="cpu")
+    assert np.array_equal(sums.numpy().astype(np.uint32), jdl.plane_checksums(ry, ru, rv))

@@ -7,8 +7,10 @@ All comparisons are exact (tolerance 0).
 
 Streams come from pfv_torch.synth (runtime payloads, no encoder compile):
 64x48, 128x48 with a keyframe every 2 frames, the 4112x16 edge stream (the
-GOP route), and 64x48 without its I-packet (the per-frame route); one with a
-drop frame (an I-packet without payload) and an unknown packet mid-stream."""
+GOP route), and 64x48 without its I-packet (K1 from the starting canvas);
+one with a drop frame (an I-packet without payload) and an unknown packet
+mid-stream; 4112-wide streams past the dense route's positions cap
+(lowered here), which the loader and the chunked decode take in chunks."""
 
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ def streams():
 
 
 ROUTES = {"64x48": "units", "128x48_gop2": "units", "4112x16": "gops",
-          "64x48_first_p": "frames", "64x48_drop": "units"}
+          "64x48_first_p": "units", "64x48_drop": "units"}
 
 
 @pytest.mark.parametrize("name", list(ROUTES))
@@ -203,15 +205,54 @@ def test_chunks_keep_drop_frames_and_unknown_packets(streams, cap):
 
 
 def test_a_clip_too_long_for_its_route_passes_it_in_chunks(streams, monkeypatch):
-    """The gate F*64*row_span < 2^31 at a small size: with the positions'
-    limit lowered the whole 4112x16 clip goes frame by frame, each chunk of
-    one GOP by a dense route."""
-    data = streams["4112x16"]  # 8 frames, a keyframe every 4
+    """The positions' limit at a small size: with it lowered to 4 frames the
+    whole 4112x16 clip (8 frames, a keyframe every 4) no longer fits the GOP
+    route and takes the dense route in two chunks of one GOP; so does each
+    of `chunk_streams`' runs."""
+    data = streams["4112x16"]
     row_span = tdl.pstep_tables(tdl.geometry(4112, 16))[2]
     monkeypatch.setattr(tdl, "MAX_POSITIONS", 5 * 64 * row_span)
     whole = tdl.choose_route(data)
-    assert (whole.kind, whole.gate) == ("frames", "F*64*row_span < 2^31")
+    assert (whole.kind, whole.gate, len(whole.host)) == ("dense", None, 2)
     kinds = [tdl.choose_route(c).kind for _, c in tdl.chunk_streams(data, 4)]
     assert kinds == ["dense", "dense"]
     got = torch.cat([c for _, c in tdl.decode_video_rgb_chunks(data, 4, device="cpu")])
     assert torch.equal(got, ref_rgb(data))
+    assert torch.equal(pfv_torch.decode_video_rgb(data, device="cpu"), got)
+
+
+QIDX = [(0, 1, 2), (3, 2, 1), (1, 3, 0), (2, 0, 3), (0, 0, 1)]
+CHUNKED = {
+    # name: (w, h, frames, keyframe interval, frames per chunk, leading P)
+    "4112x16_cut_in_gop": (4112, 16, 9, 4, 3, False),
+    "4112x32_one_key": (4112, 32, 7, 1 << 30, 2, False),
+    "4112x32_first_p": (4112, 32, 6, 3, 4, True),
+}
+
+
+@pytest.mark.parametrize("name", list(CHUNKED))
+def test_loader_and_chunks_take_the_chunked_dense_route(name, monkeypatch):
+    """Streams past the positions cap, on q-table indices per frame and
+    plane: the loader (the worker uploads every chunk, the consumer steps
+    them in turn) and `decode_video_rgb_chunks` equal the reference."""
+    w, h, f, key, per_chunk, first_p = CHUNKED[name]
+    data = synth.random_stream(w, h, f + first_p, seed=f, keyframes=key, qidx=QIDX)
+    if first_p:
+        info, packets = split_packets(data)
+        data = synth.container(w, h, info["qtables"], packets[1:])
+    row_span = tdl.pstep_tables(tdl.geometry(w, h))[2]
+    monkeypatch.setattr(tdl, "MAX_POSITIONS", per_chunk * 64 * row_span + 1)
+    route = tdl.choose_route(data)
+    assert (route.kind, len(route.host), route.leading_p) == ("dense", -(-f // per_chunk),
+                                                              first_p)
+    want = ref_rgb(data)
+    got = list(pfv_torch.VideoDataLoader([data, streams_64x48(), data], device="cpu"))
+    assert torch.equal(got[0], want) and torch.equal(got[2], want)
+    if not first_p:  # the chunked decode cuts at I-packets: it needs a leading one
+        chunks = list(tdl.decode_video_rgb_chunks(data, min(key, 512), device="cpu"))
+        assert [s for s, _ in chunks] == list(range(0, f, min(key, 512)))
+        assert torch.equal(torch.cat([c for _, c in chunks]), want)
+
+
+def streams_64x48() -> bytes:
+    return synth.random_stream(64, 48, 5, seed=1, keyframes=3)

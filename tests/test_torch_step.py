@@ -1,11 +1,17 @@
-"""K1's plain version and the per-clip table builders of pfv_torch against
-the JAX package's units path, fed the same tile-demux output.
+"""K1's plain version and the table builders of pfv_torch against the JAX
+package's units path, fed the same tile-demux output.
 
 The JAX builders (_unpack_meta, _pstep_metadata, _pstep_qmul) are closures
 of dataloader._make_decoder; the test reaches them through the closure
-cells of the jitted entry point, so the reference stays untouched. K1's
-plain version is held canvas for canvas against make_step_seq_units in
-interpret mode. All comparisons are exact."""
+cells of the jitted entry point, so the reference stays untouched. The JAX
+kernels take one multiplier set per clip, [I/P][luma/chroma]; the port one
+(3, 64) table per frame: on a clip with uniform q-table indices the port's
+tables equal the JAX set broadcast to (F, 3, 64), and K1's plain version is
+held canvas for canvas against make_step_seq_units in interpret mode, fed
+either. Streams with q-table indices that differ from frame to frame and
+between U and V, and streams whose first frame is a P-frame (predicted
+from the starting canvas), are held to `runtime.ref_decode`. All
+comparisons are exact."""
 
 from __future__ import annotations
 
@@ -15,6 +21,9 @@ import pytest
 import torch
 
 from pfv_torch import dataloader as tdl
+from pfv_torch import synth
+from pfv_torch.dec import split_packets
+from pfv_torch.frame import initial_canvas
 from pfv_torch.kernels.step import step_frames, step_frames_plain
 from pfv_tpu import dataloader as jdl
 from pfv_tpu import runtime
@@ -52,9 +61,17 @@ def _port_tables(c):
     meta = torch.from_numpy(c["meta"].astype(np.int32))
     mvx, mvy, hc, ftype, qidx = tdl.unpack_meta(meta, c["g"].nb)
     maps = tdl.block_maps(c["g"], mvx, mvy, hc)
-    qmul = tdl.dequant_multipliers(torch.from_numpy(c["info"]["qtables"]),
-                                   ftype, hc, qidx)
+    qmul = tdl.frame_multipliers(torch.from_numpy(c["info"]["qtables"]), qidx)
     return (mvx, mvy, hc, ftype, qidx), maps, qmul
+
+
+def broadcast_clip_set(jq, ftype) -> torch.Tensor:
+    """The JAX per-clip multipliers (2, 2, 64, 1) [I/P][luma/chroma] ->
+    (F, 3, 64): frame f's Y row the luma set of its type, U and V rows the
+    chroma set."""
+    jq = torch.from_numpy(np.array(jq)[..., 0])
+    mode = (torch.as_tensor(np.array(ftype)).long() != 1).long()
+    return jq[mode][:, [0, 1, 1]].contiguous()
 
 
 def _jax_tables(c):
@@ -85,7 +102,8 @@ def test_table_builders_match_jax(clip):
     for a, b in ((dy, dyc), (dx, dxc), (hc, hcc)):
         got, b = a.repeat_interleave(16, dim=2).numpy(), np.asarray(b)
         assert got.dtype == b.dtype and np.array_equal(got, b)
-    assert np.array_equal(qmul.numpy(), np.asarray(jq)[..., 0])
+    assert qmul.dtype == torch.int32 and qmul.shape == (pm[3].shape[0], 3, 64)
+    assert torch.equal(qmul, broadcast_clip_set(jq, pm[3]))
 
 
 def test_step_plain_matches_units_kernel(clip):
@@ -95,7 +113,7 @@ def test_step_plain_matches_units_kernel(clip):
     units = torch.from_numpy(clip["units"].view(np.int32))
     coff = torch.from_numpy(clip["coff"])
     args = (units, coff, dy, dx, hc, meta[3].contiguous(), qmul, g.chh, g.cw,
-            g.gly)
+            g.gly, g.guw)
     got = step_frames_plain(*args)
     (_, _, _, jft, _), (dyc, dxc, hcc, stab), jq = _jax_tables(clip)
     seq = make_step_seq_units(g.chh, g.cw, g.gly, C=tdl.UNITS_CHUNK,
@@ -103,6 +121,9 @@ def test_step_plain_matches_units_kernel(clip):
     want = np.asarray(seq(jnp.asarray(clip["units"]), jnp.asarray(clip["coff"]),
                           dyc, dxc, hcc, jft.astype(jnp.int32), stab, jq))
     assert got.shape == want.shape and np.array_equal(got.numpy(), want)
+    # fed the JAX set broadcast to (F, 3, 64), the same canvases
+    clip_set = broadcast_clip_set(jq, jft)
+    assert torch.equal(step_frames_plain(*args[:6], clip_set, *args[7:]), got)
     # the wrapper takes the plain version for a CPU tensor, without a launch
     before = step_frames.launches
     assert torch.equal(step_frames(*args), got)
@@ -132,19 +153,55 @@ def test_step_rejects_what_the_kernel_cannot_take(clip):
         args = list(good)
         args[i] = t
         with pytest.raises(ValueError):
-            step_frames(*args, g.chh, g.cw, g.gly)
+            step_frames(*args, g.chh, g.cw, g.gly, g.guw)
     with pytest.raises(ValueError):
-        step_frames(*good, g.chh, 4096 + 16, g.gly)  # > 1024 lanes
+        step_frames(*good, g.chh, 4096 + 16, g.gly, g.guw)  # > 1024 lanes
+    with pytest.raises(ValueError):
+        step_frames(*good, g.chh, g.cw, g.gly, g.gcw)  # U's columns past the canvas
+    canvas = initial_canvas(g, "cpu")
+    for prev in (canvas[:-16], canvas.t(), canvas.to(torch.int16)):
+        with pytest.raises(ValueError):
+            step_frames(*good, g.chh, g.cw, g.gly, g.guw, prev)
 
 
-@pytest.mark.parametrize("i", range(7))
+@pytest.mark.parametrize("i", range(8))
 def test_step_raises_on_an_input_on_another_device(clip, i):
     """The one check of a whole-clip call refuses an input on another device
-    than the units, whichever it is."""
+    than the units, whichever it is, the starting canvas included."""
     g = clip["g"]
     meta, (dy, dx, hc), qmul = _port_tables(clip)
     args = [torch.from_numpy(clip["units"].view(np.int32)), torch.from_numpy(clip["coff"]),
-            dy, dx, hc, meta[3].contiguous(), qmul]
+            dy, dx, hc, meta[3].contiguous(), qmul, initial_canvas(g, "cpu")]
     args[i] = args[i].to("meta")
     with pytest.raises(ValueError, match="one device"):
-        step_frames(*args, g.chh, g.cw, g.gly)
+        step_frames(*args[:7], g.chh, g.cw, g.gly, g.guw, args[7])
+
+
+# (Y, U, V) q-table indices, frame f taking QIDX[f % 5]: every frame's
+# differ from the frame before it, and U != V in four of five
+QIDX = [(0, 1, 2), (3, 2, 1), (1, 3, 0), (2, 0, 3), (0, 0, 1)]
+
+
+@pytest.mark.parametrize("w, h, leading", [(128, 48, "I"), (128, 48, "P"), (136, 90, "P"),
+                                           (64, 32, "P")])
+def test_step_plain_takes_per_frame_tables_and_a_starting_canvas(w, h, leading):
+    """K1's plain version on streams the per-clip set could not take: q-table
+    indices per frame and plane, and (leading "P") the first packet cut, so
+    frame 0 predicts from the reference framebuffer."""
+    data = synth.random_stream(w, h, 6, seed=w + h, keyframes=3, qidx=QIDX)
+    if leading == "P":
+        info, packets = split_packets(data)
+        data = synth.container(w, h, info["qtables"], packets[1:])
+    g, args = tdl.upload(tdl.demux_host(data), "cpu")
+    ftype = args[5]
+    assert (ftype[0].item() == 2) == (leading == "P")
+    prev = initial_canvas(g, "cpu") if leading == "P" else None
+    got = step_frames_plain(*args, g.chh, g.cw, g.gly, g.guw, prev)
+    assert torch.equal(step_frames(*args, g.chh, g.cw, g.gly, g.guw, prev), got)
+    _, ry, ru, rv, _ = runtime.ref_decode(data)
+    for p, r in zip(tdl.slice_yuv(g, got), (ry, ru, rv)):
+        assert np.array_equal(p.numpy(), r)
+    # the q-table indices differ per frame and between U and V
+    qidx = tdl.unpack_meta(torch.from_numpy(tdl.demux_host(data)[4].astype(np.int32)),
+                           g.nb)[4]
+    assert len({tuple(q) for q in qidx.tolist()}) > 2 and (qidx[:, 1] != qidx[:, 2]).any()
