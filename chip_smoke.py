@@ -71,7 +71,12 @@ from the repository root. Phases, one line each:
      a flat frame and on a frame equal to the previous one (every candidate
      ties: every vector 0), on single planes 16x16, 16x64 and 64x16 and on
      the planes of an 18x10 frame (one macroblock high or wide: only the
-     centre, or one axis, is in the plane);
+     centre, or one axis, is in the plane), and on the stress inputs of
+     pfv_torch.synth.search_stress on a 1080p canvas (every vector in
+     -15..15, so every column phase of a window; ring candidates that tie;
+     the largest error, also at thresholds just below and at it; walks
+     against every edge of U and V) and on a one-block-high and a
+     one-block-wide plane; each search one launch;
  12. drive encode_video (quality 2, a keyframe every 60, as the corpora
      were written) over the three sources and check each output's sha256
      against the committed corpus, which the JAX package's encoder wrote;
@@ -85,11 +90,13 @@ from the repository root. Phases, one line each:
  14. time K6 per 1080p frame, an I-frame and a P-frame (CUDA events around
      one wrapped call, 100 calls back to back, the profiler's device time,
      the plain version alternating) and K8 per 1080p P-frame of both 1080p
-     sources in the same way, encode_video's frames/s per corpus,
+     sources in the same way, K8's SASS instructions per 16 pixels of a
+     candidate (cuobjdump), encode_video's frames/s per corpus,
      each layer of a whole 1080p encode (source H2D, the padding on the
      device, K8, K6, the in-loop frame step, compaction and D2H, host mux;
      each synchronized) and
-     the device's busy share of a whole 1080p encode (profiler);
+     the device's busy share of a whole 1080p encode and K8's time per
+     launch in it (profiler);
  15. hold K3 (dense whole-clip step) and K4 (dense frame step, batched over
      GOPs) against their plain versions on the card, on the inputs the dense
      routes give them for the three corpora: K3 over the whole clip, K4 in
@@ -166,6 +173,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -210,9 +218,14 @@ RATES = {}
 # 16 pixels of a candidate whose error is summed, whatever the kernel's form:
 # four byte-wise differences of four pixels (__vabsdiffu4), four dot products
 # that square and add them (__dp4a), one add into the candidate's sum. The
-# kernel's body runs about 42 instructions there (positions, edge tests,
-# addresses, shared loads, word selects, funnel shifts, the redux, the score):
-# that is where its time goes, and no part of its bound.
+# kernel takes a step's eight ring candidates at once (lane l:
+# candidate l / 4 + 1, rows l % 4 + 4 r), reads each window row as four whole
+# words of one of four byte-shifted copies of the staged region (pitch 47
+# words, 1.5 wavefronts per load), 2 x 8 blocks a CTA of 16 warps, 3 CTAs an
+# SM, and runs about 18 SASS instructions per 16 pixels of a candidate
+# (sass_per_16px; 48 in the earlier form that took a candidate per
+# half-warp, word selects and funnel shifts included). The bound counts none of that body: its time goes to the wait
+# for the staged region (tools/k8_variants.py --probe).
 DCT8_OPS = 36 + 3 * 12 + 6
 IDCT_OPS = 1 + 2 * DCT8_OPS / 8 + 5
 FDCT_OPS = 4 + 2 * DCT8_OPS / 8 + 8
@@ -547,7 +560,9 @@ def search_vs_plain(layout, sources, prev, min_err):
     search = MotionSearch(layout, min_err, prev.device)
     got, want = ([torch.full((search.blocks,), 7, dtype=d, device=prev.device)
                   for d in (torch.int8, torch.int8, torch.uint8)] for _ in range(2))
+    before = MotionSearch.launches
     search(sources, prev, got)
+    check(MotionSearch.launches - before == 1, "a motion search was not one launch")
     motion_search_plain(sources, prev, search.layout, min_err, want)
     return max(max_abs_err(a, b) for a, b in zip(got, want)), got
 
@@ -573,6 +588,28 @@ def motion_search_bound(g, candidates: int):
     header of each block written; SEARCH_OPS per 16 pixels, 16 times, of
     each candidate summed."""
     return bound(2 * 256 * g.nb + 3 * g.nb, 16 * SEARCH_OPS * candidates)
+
+
+def sass_per_16px(so_path: str, kernel: str = "motion_search_kernel"):
+    """(instructions from the kernel's first IDP.4A to its last, IDP.4A
+    count, those instructions per 16 pixels of a candidate: a block's 33
+    candidates of 256 pixels are 16.5 runs of 16 pixels per lane) from
+    cuobjdump -sass of the library; None where cuobjdump is missing or
+    fails, or the kernel has no IDP.4A."""
+    exe = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    try:
+        out = subprocess.run([exe, "-sass", so_path], capture_output=True, text=True,
+                             check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    for func in out.split("Function : ")[1:]:
+        if kernel in func.split("\n", 1)[0]:
+            ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", func)
+            idp = [i for i, op in enumerate(ins) if "IDP.4A" in op]
+            if idp:
+                n = idp[-1] - idp[0] + 1
+                return n, len(idp), n / (33 * 256 / 32 / 16)
+    return None
 
 
 def first_pframe(name, srcs, dev):
@@ -1287,16 +1324,40 @@ def main() -> int:
     g18 = dl.geometry(18, 10)
     k8_in["18x10"] = (canvas_layout(g18), [noise(sh) for sh in padded_shapes(g18)],
                       noise((g18.chh, g18.cw)))
+
+    def on_card(planes):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in planes]
+
+    # the stress inputs (pfv_torch.synth.search_stress): every vector, ties in
+    # the ring, the largest error, walks against every edge of U and V
+    for kind in synth.SEARCH_STRESS:
+        sources, prev = synth.search_stress_canvas(kind, 1920, 1080, seed=12)
+        k8_in[f"1080p {kind}"] = (fe.motion.layout, on_card(sources), on_card([prev])[0])
+    for h, w in ((16, 1920), (1088, 16)):
+        src, prev = synth.search_stress("shifts", h, w, seed=12)
+        src, prev = on_card([src, prev])
+        k8_in[f"one plane {w}x{h} shifts"] = (plane_layout(h, w), [src], prev)
+    largest = 16 * 16 * 255 ** 2
     err_k8 = 0
     for name, (layout, sources, prev) in k8_in.items():
-        for min_err in (0.0, 57600.0):  # qualities 0 and 10
+        thresholds = (0.0, 57600.0)  # qualities 0 and 10
+        if "largest" in name:  # just below and at every block's error
+            thresholds += (largest - 1.0, float(largest))
+        for min_err in thresholds:
             e, (mvy, mvx, hc) = search_vs_plain(layout, sources, prev, min_err)
             still = not bool(mvy.any()) and not bool(mvx.any())
+            vectors = len(set(zip(mvy.tolist(), mvx.tolist())))
             print(f"phase 11 K8 (motion search) vs plain, {name}, min_err {min_err:.0f} "
                   f"({mvy.shape[0]} blocks, {int(hc.sum())} coded, "
-                  f"{int(((mvy != 0) | (mvx != 0)).sum())} moved): max_abs_err {e}")
+                  f"{int(((mvy != 0) | (mvx != 0)).sum())} moved, {vectors} vectors): "
+                  f"max_abs_err {e}")
             if "flat" in name or "equal" in name or name == "one plane 16x16":
                 check(still, f"K8 on {name}: a vector is not 0 where every candidate ties")
+            if name == "1080p shifts":
+                check(vectors == 31 * 31, "K8 on 1080p shifts: not every vector was found")
+            if "largest" in name:
+                check(still and bool((hc == (min_err < largest)).all()),
+                      f"K8 on {name}, min_err {min_err:.0f}: has_coeff is off")
             err_k8 = max(err_k8, e)
     check(err_k8 == 0, "K8 disagrees with its plain version")
     k8_in = {k.split()[0]: v for k, v in k8_in.items() if k.endswith("frame 1")}
@@ -1405,6 +1466,11 @@ def main() -> int:
               + f", bound {1e3 * bounds['K8'][name][0]:.3f} us ({bounds['K8'][name][1]}; "
               f"bytes {1e3 * bounds['K8'][name][2]:.3f}, operations "
               f"{1e3 * bounds['K8'][name][3]:.3f}) ({card})")
+    sass = sass_per_16px(build.SO_PATH)
+    print("phase 14 K8 SASS (cuobjdump -sass of the built library): " + (
+        f"{sass[0]} instructions from the first IDP.4A to the last, {sass[1]} IDP.4A: "
+        f"{sass[2]:.2f} instructions per 16 pixels of a candidate (SEARCH_OPS "
+        f"{SEARCH_OPS})" if sass else "not measured (cuobjdump failed)"))
     fps = {}
     for name, planes in srcs.items():
         runs = [host_ms(lambda: encode_video(*planes, FPS, QUALITY, KEYFRAMES,
@@ -1440,6 +1506,12 @@ def main() -> int:
           "device time: " + "; ".join(
               f"{ev.key[:70]} {ev.self_device_time_total / 1e3:.3f} ms ({ev.count} runs)"
               for ev in top[:8]) + f" ({card})")
+    k8_ev = [ev for ev in on_card if "motion_search_kernel" in ev.key]
+    print("phase 14 K8 inside that encode_video: " + (
+        f"{sum(ev.count for ev in k8_ev)} launches, "
+        f"{sum(ev.self_device_time_total for ev in k8_ev) / 1e3:.3f} ms, "
+        f"{sum(ev.self_device_time_total for ev in k8_ev) / sum(ev.count for ev in k8_ev):.2f}"
+        f" us per launch" if k8_ev else "not seen by the profiler") + f" ({card})")
 
     # phase 15: K3 and K4 against their plain versions, dense-route inputs
     from pfv_torch.kernels.dense_step import (seq_frames_dense, seq_frames_dense_plain,

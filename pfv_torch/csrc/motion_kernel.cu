@@ -6,7 +6,7 @@
 // encode_scan), and with it the comparison against the skip threshold that
 // follows it in pfv_tpu/ops/pframe.py encode_plane_delta. The one-hot matrix
 // products that pick the windows on the TPU are not carried over: a window
-// is a run of bytes in shared memory.
+// is a run of words in shared memory.
 //
 // Inputs: per plane a descriptor: the padded source plane (origin and row
 // stride; the planes may be three tensors), its origin in the previous
@@ -27,65 +27,102 @@
 // Then mvx = x - x0, mvy = y - y0 (|v| <= 15) and has_coeff = float(err) >
 // min_err.
 //
-// One CTA of 8 warps takes 8 neighbouring blocks of one block row of one
-// plane (the grid is flat: the planes' CTAs one after the other), a warp a
-// block. The CTA stages the part of the previous plane its searches can
-// reach, rows y0 - 15 .. y0 + 30 and columns x0 - 16 .. x0 + 143 clipped to
-// the plane (so no byte outside the plane's view is read: a window that
-// leaves U to the right is refused and V is never touched), with 16-byte
-// loads into a shared tile of 46 rows. A lane keeps one 16-pixel row of the
-// source block in four registers for the whole walk (row lane % 16); the two
-// half-warps take two candidates of a step at a time, priorities 2t + 1 and
-// 2t + 2 in turn t, so a step is four turns. Per turn a lane reads the 24
-// aligned bytes that hold its 16 window pixels with three 8-byte loads,
-// lines them up with funnel shifts, takes |c - w| of four pixels at a time
-// (__vabsdiffu4) and their squares' sum (__dp4a), and the warp adds each
-// half-warp's 16 partial sums with one redux (__reduce_add_sync, the other
-// half's lanes adding 0), which leaves both errors on every lane. A candidate off
-// the plane is summed at the centre's place (a place that is in the tile)
-// and its score is the largest int. After the four turns the halves swap
-// their best scores with one shuffle; every lane then holds the step's
-// winner, so the walk has no divergent branch. The tile's pitch of 168
-// bytes = 21 8-byte words, an odd number, puts the 16 rows of a half-warp's
-// window on 16 different 8-byte bank pairs: no bank conflict.
+// One CTA of 16 warps takes 2 x 8 blocks of one plane (kBlockRows block
+// rows of kBlocks blocks; the grid is flat: the planes' CTAs one after the
+// other), a warp a block. It stages the part of the previous plane its
+// searches can reach, rows y0 - 15 .. y0 + 32 + 14 and columns x0 - 16 ..
+// x0 + 16 kBlocks + 15 clipped to the plane (so no byte outside the plane's
+// view is read: a window that leaves U to the right is refused and V is
+// never touched), with 16-byte loads, in four copies: copy s holds at word i
+// the four bytes from column 4 i + s of the staged region. A window that
+// starts at column c is then, in each of its rows, the four whole words c /
+// 4 .. c / 4 + 3 of copy c % 4: no word selects, no funnel shifts. The
+// CTA's 16 source blocks are staged beside it with the same loads, so that
+// the region and the sources are one wait, not two.
+//
+// A block takes five rounds: the centre, then one per step with its eight
+// ring candidates in flight at once. In a step, lane l takes the candidate
+// of priority l / 4 + 1 and the block's rows q, q + 4, q + 8, q + 12 (q = l
+// % 4; the source rows stay in 16 registers for the whole walk): 16 shared
+// loads, each pixel's |c - w| by byte-wise SIMD (__vabsdiffu4) and the
+// squares' sum (__dp4a), two shuffles (xor 1, 2) add the candidate's four
+// partial sums, one redux takes the smallest score of the eight and two
+// shuffles fetch the winner's place from its first lane, so every lane
+// holds the step's winner and the walk has no divergent branch. The address
+// and the edge test are paid once per lane and candidate; the rows lie at
+// constant offsets of the pitch. A candidate off the plane is summed at the
+// centre's place (in the tile) and scored the largest int. The centre round
+// spreads the one window over the warp (lane l: row l % 16, eight bytes)
+// and adds it with one redux.
+//
+// Banks: a step's 32 lanes read 32 words per load. Rows q + 4 r (not 4 q +
+// r) and a row pitch of kPitch = 47 words (15 mod 32), the copies kCopy
+// words apart (20 mod 32), put those words on 32 different banks in steps 2
+// and 1 and at most two to a bank in steps 8 and 4 (all eight candidates
+// there are in one copy): 1.5 wavefronts per load on average over the four
+// steps and the four column phases, where 4 q + r rows or another pitch
+// give 1.75 or more.
+//
+// Occupancy: 40 registers and 51,520 bytes of dynamic shared memory a CTA of
+// 512 threads: 3 CTAs (48 warps) an SM, registers bound; a 1080p frame's
+// 782 CTAs are 1.97 waves on 132 SMs. Measured on an H100 (tools/
+// k8_variants.py, profiler device time per 1080p P-frame): 8 x 2 blocks
+// 12.2 us, 4 x 2 12.8, 8 x 1 13.2 (6 CTAs an SM, 1,564 CTAs). A persistent
+// grid that fetched the next tile with cp.async while it searched one needed
+// 64 registers, so 2 CTAs an SM, and was slower.
 //
 // What bounds it on this card: the bytes, 1 B per pixel of source and of
 // previous plane and 3 B of header per block; the search itself needs only
 // the eight byte-wise SIMD operations and one add per 16 pixels of a
 // candidate (33 candidates per block away from the plane's edges), a little
-// less time than the bytes at 1080p. The body runs about five times those
-// operations (positions, edge tests, addresses, shared loads, word selects,
-// funnel shifts, the redux, the score), and that is where its time goes.
-// Design: the reachable region staged once per 8 blocks (each byte of the
-// previous plane is read from device memory or L2 about 4 times instead of
-// 33), the source in registers, 16 pixels per lane and candidate so that the
-// address, the edge tests, the redux and the score are paid once per 16
-// pixels, byte-wise SIMD, no atomics, no divergent branch, one launch per
-// frame and one host call.
+// less time than the bytes at 1080p. The body runs 18 SASS instructions per
+// 16 pixels of a candidate (48 in a form with a candidate per half-warp),
+// but a warp spends most of its cycles waiting for its CTA's region and
+// sources (tools/k8_variants.py --probe: about 7,900 cycles staging, 6,800
+// the sources and the centre, 3,200 the four steps): the kernel is bound by
+// the latency of its loads, not by its arithmetic.
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifndef PFV_K8_BLOCKS
+#define PFV_K8_BLOCKS 8  // blocks per CTA row: 4 or 8
+#endif
+#ifndef PFV_K8_ROWS
+#define PFV_K8_ROWS 2  // block rows per CTA: 1 or 2
+#endif
 
 namespace {
 
 using u32 = unsigned int;
 
 constexpr int kMaxPlanes = 3;
-constexpr int kWarps = 8;                 // blocks per CTA
-constexpr int kThreads = 32 * kWarps;
-constexpr int kReach = 15;                // 8 + 4 + 2 + 1
-constexpr int kRows = 16 + 2 * kReach;    // rows a block's searches can reach
-constexpr int kCols = 16 * kWarps + 32;   // a margin of 16 on each side: aligned loads
-constexpr int kPitch = kCols + 8;         // 168 B: see the note on banks above
+constexpr int kMaxDevices = 64;
+constexpr int kBlocks = PFV_K8_BLOCKS;      // blocks per CTA row
+constexpr int kBlockRows = PFV_K8_ROWS;     // block rows per CTA
+constexpr int kThreads = 32 * kBlocks * kBlockRows;  // a warp a block
+constexpr int kReach = 15;                  // 8 + 4 + 2 + 1
+constexpr int kRows = 16 * kBlockRows + 2 * kReach;  // rows the CTA's searches can reach
+constexpr int kChunks = kBlocks + 2;        // 16-byte chunks of a staged row, at most
+constexpr int kItems = (kRows * kChunks + kThreads - 1) / kThreads;  // chunks per thread
+// words per row of a copy and per copy: see the note on banks above
+constexpr int kPitch = kBlocks == 4 ? 25 : 47;
+constexpr int kCopy = kRows * kPitch + ((kBlocks == 4 ? 1 : 20) - kRows * kPitch % 32 + 32) % 32;
+constexpr int kSrcPitch = 16 * kBlocks + 16;  // bytes per source row: 16 apart in banks
+constexpr int kSmem = 16 * kCopy + 16 * kBlockRows * kSrcPitch;  // bytes
+static_assert(kBlocks == 4 || kBlocks == 8, "PFV_K8_BLOCKS must be 4 or 8");
+static_assert(kBlockRows == 1 || kBlockRows == 2, "PFV_K8_ROWS must be 1 or 2");
+static_assert(kPitch >= 4 * kChunks && kCopy >= kRows * kPitch, "the tile is too small");
 
 struct Plane {
   const uint8_t* src;   // its (0, 0) in the source
   const uint8_t* prev;  // its (0, 0) in the previous reconstruction
-  long long src_stride, prev_stride;
+  int src_stride, prev_stride;
   int first;            // its first block in the header rows
   int nbx, nby;         // blocks per row, block rows
   int lbs;              // CTAs per block row
+  float inv_lbs;        // 1 / lbs
   int cta0;             // its first CTA
 };
 
@@ -99,94 +136,172 @@ struct Planes {
 __device__ __forceinline__ int ring_x(int k) { return (k - 1 + (k > 4)) % 3 - 1; }
 __device__ __forceinline__ int ring_y(int k) { return (k - 1 + (k > 4)) / 3 - 1; }
 
+#ifdef PFV_K8_PROBE  // tools/k8_variants.py --probe: where a warp's cycles go
+// clock64 spans summed over the warps: the staging, the sources and the
+// centre, the four steps; and the warps
+__device__ unsigned long long k8_probe[4];
+__device__ __forceinline__ long long probe_clock() { return clock64(); }
+__device__ __forceinline__ void probe_add(long long t0, long long t1, long long t2) {
+  const long long t3 = clock64();
+  atomicAdd(&k8_probe[0], (unsigned long long)(t1 - t0));
+  atomicAdd(&k8_probe[1], (unsigned long long)(t2 - t1));
+  atomicAdd(&k8_probe[2], (unsigned long long)(t3 - t2));
+  atomicAdd(&k8_probe[3], 1ull);
+}
+#else
+__device__ __forceinline__ long long probe_clock() { return 0; }
+__device__ __forceinline__ void probe_add(long long, long long, long long) {}
+#endif
+
+// The squared error of 4 pixels, added to s.
+__device__ __forceinline__ u32 sq4(u32 c, u32 w, u32 s) {
+  const u32 d = __vabsdiffu4(c, w);
+  return __dp4a(d, d, s);
+}
+
 __global__ void __launch_bounds__(kThreads)
 motion_search_kernel(int8_t* __restrict__ mvy, int8_t* __restrict__ mvx,
                      uint8_t* __restrict__ hc, float min_err, const Planes planes) {
-  // 16 bytes more: a lane's third 8-byte load may lie past its window
-  __shared__ __align__(16) uint8_t tile[kRows * kPitch + 16];
+  extern __shared__ __align__(16) u32 smem[];
+  u32* tile = smem;  // the four copies
+  const long long t0 = probe_clock();
+  // the CTA's source blocks
+  auto blocks = reinterpret_cast<uint8_t (*)[kSrcPitch]>(smem + 4 * kCopy);
 
   Plane P = planes.p[0];
 #pragma unroll
   for (int k = 1; k < kMaxPlanes; k++)
     if (k < planes.n && (int)blockIdx.x >= planes.p[k].cta0) P = planes.p[k];
   const int local = blockIdx.x - P.cta0;
-  const int br = local / P.lbs, gc0 = (local % P.lbs) * kWarps;
+  const int cr = (int)((local + 0.5f) * P.inv_lbs);  // local / lbs: exact below 2^22
+  const int gc0 = (local - cr * P.lbs) * kBlocks;
   const int h = 16 * P.nby, w = 16 * P.nbx;
-  const int y0 = 16 * br, x0 = 16 * gc0;
+  const int y0 = 16 * kBlockRows * cr, x0 = 16 * gc0;
 
-  // the region of the previous plane this CTA's searches can reach
-  const int ry0 = max(y0 - kReach, 0), ry1 = min(y0 + 16 + kReach, h);
-  const int xlo = max(x0 - 16, 0), xhi = min(x0 + 16 * kWarps + 16, w);
-  const int chunks = (xhi - xlo) >> 4;
-  for (int p = threadIdx.x; p < (ry1 - ry0) * chunks; p += kThreads) {
-    const int r = p / chunks, c = p % chunks;
-    const uint4 v = *reinterpret_cast<const uint4*>(
-        P.prev + (long long)(ry0 + r) * P.prev_stride + xlo + 16 * c);
-    uint2* dst = reinterpret_cast<uint2*>(&tile[r * kPitch + 16 * c]);
-    dst[0] = make_uint2(v.x, v.y);
-    dst[1] = make_uint2(v.z, v.w);
+  // the region of the previous plane the CTA's searches can reach, in four
+  // copies shifted by 0..3 bytes
+  const int ry0 = max(y0 - kReach, 0), rows = min(y0 + 16 * kBlockRows + kReach, h) - ry0;
+  const int xlo = max(x0 - 16, 0), chunks = (min(x0 + 16 * kBlocks + 16, w) - xlo) >> 4;
+  const uint8_t* region = P.prev + (long long)ry0 * P.prev_stride + xlo;
+  const int lane = threadIdx.x & 31;
+  uint4 v[kItems];
+  u32 last[kItems];
+#pragma unroll
+  for (int it = 0; it < kItems; it++) {  // every load in flight before the first store
+    const int p = threadIdx.x + it * kThreads, r = p / kChunks, c = p - r * kChunks;
+    v[it] = make_uint4(0u, 0u, 0u, 0u);
+    last[it] = 0u;
+    if (r < rows && c < chunks) {
+      const uint8_t* g = region + (r * P.prev_stride + 16 * c);
+      v[it] = *reinterpret_cast<const uint4*>(g);
+      // the next chunk's first word: lane 31 loads it, the others take it
+      // from the next lane below; past the region no window reads it
+      if (lane == 31 && c + 1 < chunks) last[it] = *reinterpret_cast<const u32*>(g + 16);
+    }
   }
+  // and the CTA's source blocks, a 16-byte chunk a thread
+  const int sr = threadIdx.x / kBlocks, sc = threadIdx.x - sr * kBlocks;
+  const bool source = sr < 16 * kBlockRows && y0 + sr < h && gc0 + sc < P.nbx;
+  uint4 sv = make_uint4(0u, 0u, 0u, 0u);
+  if (source)
+    sv = *reinterpret_cast<const uint4*>(P.src + (long long)(y0 + sr) * P.src_stride + x0 +
+                                         16 * sc);
+#pragma unroll
+  for (int it = 0; it < kItems; it++) {
+    const int p = threadIdx.x + it * kThreads, r = p / kChunks, c = p - r * kChunks;
+    const u32 below = __shfl_down_sync(0xFFFFFFFFu, v[it].x, 1);
+    if (r < rows && c < chunks) {
+      const u32 a[5] = {v[it].x, v[it].y, v[it].z, v[it].w,
+                        lane == 31 ? last[it] : c + 1 < chunks ? below : 0u};
+      u32* dst = tile + r * kPitch + 4 * c;
+#pragma unroll
+      for (int s = 0; s < 4; s++)
+#pragma unroll
+        for (int t = 0; t < 4; t++)
+          dst[s * kCopy + t] = __funnelshift_r(a[t], a[t + 1], 8 * s);
+    }
+  }
+  if (source) *reinterpret_cast<uint4*>(&blocks[sr][16 * sc]) = sv;
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gc = gc0 + warp;
-  if (gc >= P.nbx) return;  // whole warps leave: the shuffles below are over full warps
-  const int r = lane & 15, half = lane >> 4;
+  const long long t1 = probe_clock();
+  const int warp = threadIdx.x >> 5, wr = warp / kBlocks, wc = warp - wr * kBlocks;
+  const int gc = gc0 + wc, by = y0 + 16 * wr;
+  // whole warps leave: the shuffles below are over full warps
+  if (gc >= P.nbx || by >= h) return;
   const int bx = 16 * gc;
-  const uint4 cur =
-      *reinterpret_cast<const uint4*>(P.src + (long long)(y0 + r) * P.src_stride + bx);
-  // the tile offset of this lane's row of the window at plane (0, 0)
-  const int lane_off = (r - ry0) * kPitch - xlo;
+  const int k = (lane >> 2) + 1, q = lane & 3;  // the lane's candidate and rows
+  const int mx = ring_x(k), my = ring_y(k);
+  uint4 cur[4];  // source rows q + 4 r
+#pragma unroll
+  for (int r = 0; r < 4; r++)
+    cur[r] = *reinterpret_cast<const uint4*>(&blocks[16 * wr + q + 4 * r][16 * wc]);
+  // the centre: lane l sums row l % 16, bytes 8 (l / 16) .. 8 (l / 16) + 7
+  const uint2 own = *reinterpret_cast<const uint2*>(
+      &blocks[16 * wr + (lane & 15)][16 * wc + 8 * (lane >> 4)]);
 
-  // The squared error of the window at plane (y, x), on every lane of the
-  // half-warp; the two half-warps may ask for different windows.
-  auto ssd = [&](int x, int y) -> int {
-    const int a = lane_off + y * kPitch + x;
-    const uint2* q = reinterpret_cast<const uint2*>(tile + (a & ~7));
-    const uint2 q0 = q[0], q1 = q[1], q2 = q[2];
-    const bool up = (a & 4) != 0;
-    const int sh = 8 * (a & 3);
-    const u32 a0 = up ? q0.y : q0.x, a1 = up ? q1.x : q0.y, a2 = up ? q1.y : q1.x,
-              a3 = up ? q2.x : q1.y, a4 = up ? q2.y : q2.x;
-    const u32 d0 = __vabsdiffu4(cur.x, __funnelshift_r(a0, a1, sh));
-    const u32 d1 = __vabsdiffu4(cur.y, __funnelshift_r(a1, a2, sh));
-    const u32 d2 = __vabsdiffu4(cur.z, __funnelshift_r(a2, a3, sh));
-    const u32 d3 = __vabsdiffu4(cur.w, __funnelshift_r(a3, a4, sh));
-    const u32 s = __dp4a(d3, d3, __dp4a(d2, d2, __dp4a(d1, d1, __dp4a(d0, d0, 0u))));
-    // one sum per half-warp, each a redux over the full warp: a redux over a
-    // half-warp's own mask is compiled into one pass per mask
-    const u32 lo = __reduce_add_sync(0xFFFFFFFFu, half ? 0u : s);
-    const u32 hi = __reduce_add_sync(0xFFFFFFFFu, half ? s : 0u);
-    return (int)(half ? hi : lo);
-  };
+  // tile + base + word(x, y) holds the first pixel of row y + q of the
+  // window at plane (x, y): word x / 4 of copy x % 4, as xlo is a multiple of 16
+  const int base = (q - ry0) * kPitch - (xlo >> 2);
+  auto word = [&](int x, int y) { return (x & 3) * kCopy + (x >> 2) + y * kPitch; };
 
-  int cx = bx, cy = y0;
-  int best = ssd(cx, cy) << 4;  // err * 16 + priority; the centre's priority is 0
+  const u32* c0 = tile + base - q * kPitch + word(bx, by + (lane & 15)) + 2 * (lane >> 4);
+  int best = (int)__reduce_add_sync(0xFFFFFFFFu, sq4(own.y, c0[1], sq4(own.x, c0[0], 0u)))
+             << 4;  // err * 16 + priority; the centre's priority is 0
+  const long long t2 = probe_clock();
+  int cx = bx, cy = by;
 #pragma unroll
   for (int step = 8; step >= 1; step >>= 1) {
-    int cand = INT_MAX;  // the best of this half-warp's four candidates
+    const int x = cx + mx * step, y = cy + my * step;
+    const bool valid = (unsigned)x <= (unsigned)(w - 16) && (unsigned)y <= (unsigned)(h - 16);
+    const u32* win = tile + base + word(valid ? x : cx, valid ? y : cy);
+    u32 s0 = 0u, s1 = 0u;
 #pragma unroll
-    for (int t = 0; t < 4; t++) {
-      const int k = 2 * t + 1 + half;
-      const int x = cx + ring_x(k) * step, y = cy + ring_y(k) * step;
-      const bool valid = x >= 0 && x <= w - 16 && y >= 0 && y <= h - 16;
-      const int err = ssd(valid ? x : cx, valid ? y : cy);
-      cand = min(cand, valid ? (err << 4) + k : INT_MAX);
+    for (int r = 0; r < 4; r++) {
+      const u32* row = win + 4 * r * kPitch;
+      s0 = sq4(cur[r].x, row[0], s0);
+      s1 = sq4(cur[r].y, row[1], s1);
+      s0 = sq4(cur[r].z, row[2], s0);
+      s1 = sq4(cur[r].w, row[3], s1);
     }
-    cand = min(cand, __shfl_xor_sync(0xFFFFFFFFu, cand, 16));
-    if (cand < best) {  // the same on every lane
-      const int k = cand & 15;
-      cx += ring_x(k) * step;
-      cy += ring_y(k) * step;
-      best = cand & ~15;  // the winner is the next step's centre, priority 0
+    int err = (int)(s0 + s1);
+    err += __shfl_xor_sync(0xFFFFFFFFu, err, 1);
+    err += __shfl_xor_sync(0xFFFFFFFFu, err, 2);
+    // the smallest score of the eight, on every lane
+    const int ring = __reduce_min_sync(0xFFFFFFFFu, valid ? (err << 4) + k : INT_MAX);
+    // the winner's place, from its first lane; the centre stays where the ring loses
+    const int from = 4 * (ring & 15) - 4;
+    const int wx = __shfl_sync(0xFFFFFFFFu, x, from), wy = __shfl_sync(0xFFFFFFFFu, y, from);
+    if (ring < best) {  // the same on every lane
+      cx = wx;
+      cy = wy;
+      best = ring & ~15;  // the winner is the next step's centre, priority 0
     }
   }
   if (lane == 0) {
-    const long long b = P.first + (long long)br * P.nbx + gc;
+    probe_add(t0, t1, t2);
+    const long long b = P.first + (long long)(by >> 4) * P.nbx + gc;
     mvx[b] = (int8_t)(cx - bx);
-    mvy[b] = (int8_t)(cy - y0);
+    mvy[b] = (int8_t)(cy - by);
     hc[b] = (float)(best >> 4) > min_err ? 1 : 0;
   }
+}
+
+// Lets the kernel take kSmem bytes of dynamic shared memory on the current
+// device, once per device; returns a CUDA error code.
+int allow_smem() {
+  static bool done[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(motion_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+    if (e) return (int)e;
+    done[dev] = true;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -215,17 +330,38 @@ extern "C" int pfv_motion_search(const void* src0, const void* src1, const void*
     Plane& p = ps.p[k];
     p.src = (const uint8_t*)src[k];
     p.prev = (const uint8_t*)prev + d[1] * prev_stride + d[2];
-    p.src_stride = stride[k];
-    p.prev_stride = prev_stride;
+    p.src_stride = (int)stride[k];
+    p.prev_stride = (int)prev_stride;
     p.first = (int)d[0];
     p.nby = (int)(d[3] / 16);
     p.nbx = (int)(d[4] / 16);
-    p.lbs = (p.nbx + kWarps - 1) / kWarps;
+    p.lbs = (p.nbx + kBlocks - 1) / kBlocks;
+    p.inv_lbs = 1.0f / (float)p.lbs;
     p.cta0 = ctas;
-    ctas += p.nby * p.lbs;
+    ctas += (p.nby + kBlockRows - 1) / kBlockRows * p.lbs;
   }
   if (ctas == 0) return 0;
-  motion_search_kernel<<<ctas, kThreads, 0, (cudaStream_t)stream>>>(
+  if (const int e = allow_smem()) return e;
+  motion_search_kernel<<<ctas, kThreads, kSmem, (cudaStream_t)stream>>>(
       (int8_t*)mvy, (int8_t*)mvx, (uint8_t*)hc, min_err, ps);
   return (int)cudaGetLastError();
 }
+
+// The CTAs of the search that one SM of the current device holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on an error.
+extern "C" int pfv_motion_search_occupancy(void) {
+  int n = 0;
+  return allow_smem() || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                             &n, motion_search_kernel, kThreads, kSmem)
+             ? -1 : n;
+}
+
+#ifdef PFV_K8_PROBE
+// The probe's four sums (cycles, cycles, cycles, warps) into out, then 0.
+extern "C" int pfv_motion_search_probe(unsigned long long* out) {
+  const unsigned long long zero[4] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(out, k8_probe, sizeof(zero));
+  if (!e) e = cudaMemcpyToSymbol(k8_probe, zero, sizeof(zero));
+  return (int)e;
+}
+#endif

@@ -14,7 +14,7 @@ import struct
 import numpy as np
 
 from pfv_torch import runtime
-from pfv_torch.frame import geometry
+from pfv_torch.frame import canvas_layout, geometry
 from pfv_torch.ops.blocks import block_origins
 from pfv_torch.ops.color import rgb_to_yuv_np
 
@@ -149,3 +149,76 @@ def synth_pan_clip(n_frames: int, width: int, height: int, seed: int = 99,
         us.append(u[::2, ::2].copy())
         vs.append(v[::2, ::2].copy())
     return np.stack(ys), np.stack(us), np.stack(vs)
+
+
+SEARCH_STRESS = ("shifts", "mirror ties", "largest error", "edges")
+
+
+def _smooth_plane(h: int, w: int, rng) -> np.ndarray:
+    yy, xx = np.mgrid[:h, :w]
+    return (128 + 50 * np.sin(xx / 13.0) + 50 * np.sin(yy / 11.0 + xx / 29.0)
+            + rng.integers(0, 5, size=(h, w))).astype(np.uint8)
+
+
+def _moved_blocks(prev: np.ndarray, vectors) -> np.ndarray:
+    """A source whose block b is prev's window at the block's origin plus
+    vectors[b] (dx, dy), the window's origin clamped into the plane."""
+    h, w = prev.shape
+    by, bx = block_origins(h, w)
+    src = np.empty_like(prev)
+    for y0, x0, (dx, dy) in zip(by, bx, vectors):
+        y, x = min(max(y0 + dy, 0), h - 16), min(max(x0 + dx, 0), w - 16)
+        src[y0:y0 + 16, x0:x0 + 16] = prev[y:y + 16, x:x + 16]
+    return src
+
+
+def search_stress(kind: str, h: int, w: int, seed: int = 0):
+    """(source, previous) (h, w) uint8 planes (multiples of 16) that stress
+    a motion search's corners, from a seed:
+      "shifts": smooth planes, source block b the previous plane moved by
+        vector 32 b mod 961 of the 31 x 31 vectors (-15..15)^2, so that a
+        plane of 31 blocks or more sees every dx and every dy, and one of
+        961 or more every vector: the walk ends at every column phase;
+      "mirror ties": every row of the previous plane has period 16 and is
+        symmetric about each block's middle, and each source block the mean
+        of the windows 4 to its left and right (mirror images of each
+        other), so that ring candidates of steps 8 and 4 tie and the lower
+        priority must win;
+      "largest error": a source of 255 over a previous plane of 0: every
+        error is 16 * 16 * 255^2 = 16,646,400;
+      "edges": smooth planes, each source block the previous plane moved
+        15 pixels out towards the nearer edge in x and in y, so that walks
+        press against every edge of the plane."""
+    rng = np.random.default_rng(seed)
+    by, bx = block_origins(h, w)
+    if kind == "shifts":
+        prev = _smooth_plane(h, w, rng)
+        k = 32 * np.arange(by.shape[0]) % 961
+        return _moved_blocks(prev, zip(k % 31 - 15, k // 31 - 15)), prev
+    if kind == "mirror ties":
+        half = rng.integers(0, 256, size=(h, 8), dtype=np.uint8)
+        prev = np.tile(np.concatenate([half, half[:, ::-1]], axis=1), (1, w // 16))
+        left = _moved_blocks(prev, [(-4, 0)] * by.shape[0]).astype(np.int32)
+        right = _moved_blocks(prev, [(4, 0)] * by.shape[0]).astype(np.int32)
+        return ((left + right) // 2).astype(np.uint8), prev
+    if kind == "largest error":
+        return np.full((h, w), 255, np.uint8), np.zeros((h, w), np.uint8)
+    if kind == "edges":
+        prev = _smooth_plane(h, w, rng)
+        vectors = zip(np.where(bx + 8 < w / 2, -15, 15), np.where(by + 8 < h / 2, -15, 15))
+        return _moved_blocks(prev, vectors), prev
+    raise ValueError(f"unknown search stress {kind!r}; expected one of {SEARCH_STRESS}")
+
+
+def search_stress_canvas(kind: str, width: int, height: int, seed: int = 0):
+    """`search_stress` on each plane of a width x height frame's fused
+    canvas (U's right edge beside V's left): (the three padded source
+    planes, the previous canvas, its other bytes random)."""
+    g = geometry(width, height)
+    prev = np.random.default_rng(seed).integers(0, 256, size=(g.chh, g.cw), dtype=np.uint8)
+    sources = []
+    for i, (_, row, col, h, w) in enumerate(canvas_layout(g)):
+        src, plane = search_stress(kind, h, w, seed + 1 + i)
+        prev[row:row + h, col:col + w] = plane
+        sources.append(src)
+    return sources, prev

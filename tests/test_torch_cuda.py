@@ -426,7 +426,14 @@ def _search_case(name, cuda):
     def noise(shape):
         return rng.integers(0, 256, size=shape, dtype=np.uint8)
 
-    if name.startswith("plane"):
+    if name.startswith("1080p "):  # the stress inputs of pfv_torch.synth on a fused canvas
+        src, prev = synth.search_stress_canvas(name[6:], 1920, 1080, seed=12)
+        layout = canvas_layout(tdl.geometry(1920, 1080))
+    elif name.startswith("shifts "):  # one block high, one block wide
+        h, w = {"shifts 1920x16": (16, 1920), "shifts 16x1088": (1088, 16)}[name]
+        src, prev = synth.search_stress("shifts", h, w, seed=12)
+        layout, src = plane_layout(h, w), [src]
+    elif name.startswith("plane"):
         h, w = {"plane 16x16": (16, 16), "plane 16x64": (16, 64), "plane 64x16": (64, 16),
                 "plane 48x32": (32, 48), "plane 4112x32": (32, 4112)}[name]
         layout, src, prev = plane_layout(h, w), [noise((h, w))], noise((h, w))
@@ -454,10 +461,15 @@ def _search_case(name, cuda):
             torch.from_numpy(prev).to(cuda))
 
 
-@pytest.mark.parametrize("min_err", [0.0, 2304.0, 57600.0])
+LARGEST_ERR = 16 * 16 * 255 ** 2  # a source of 255 over a previous plane of 0
+
+
+@pytest.mark.parametrize("min_err", [0.0, 2304.0, 57600.0, LARGEST_ERR - 1.0, float(LARGEST_ERR)])
 @pytest.mark.parametrize("name", ["plane 16x16", "plane 16x64", "plane 64x16", "plane 48x32",
                                   "plane 4112x32", "frame 1920x1080", "frame 136x90",
-                                  "frame 18x10", "flat", "equal", "near"])
+                                  "frame 18x10", "flat", "equal", "near", "1080p shifts",
+                                  "1080p mirror ties", "1080p largest error", "1080p edges",
+                                  "shifts 1920x16", "shifts 16x1088"])
 def test_motion_search_kernel_matches_plain(cuda, name, min_err):
     layout, src, prev = _search_case(name, cuda)
     search = MotionSearch(layout, min_err, cuda)
@@ -477,6 +489,10 @@ def test_motion_search_kernel_matches_plain(cuda, name, min_err):
         assert not got[0][:search.blocks].any() and not got[1][:search.blocks].any()
     if name == "near":
         assert ((got[0] == 2) & (got[1] == -3)).float().mean() > 0.3
+    if name == "1080p shifts":  # every vector, so every column phase of a window
+        assert len(set(zip(got[0].tolist(), got[1].tolist()))) == 31 * 31
+    if name == "1080p largest error":  # every error is LARGEST_ERR
+        assert bool((got[2][:search.blocks] == (min_err < LARGEST_ERR)).all())
     # the sources as views of one canvas, as strided as the previous one
     if len(layout) == 3:
         canvas = torch.empty_like(prev)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from pfv_torch import device as tdevice
+from pfv_torch import synth
 from pfv_torch.frame import canvas_layout, canvas_planes, geometry
 from pfv_torch.kernels.frame_step import plane_layout
 from pfv_torch.kernels.motion import MotionSearch, motion_search_plain
@@ -47,6 +48,9 @@ def _case(name):
         return np.full((32, 48), 90, np.uint8), np.full((32, 48), 93, np.uint8)
     if name == "cur == ref":
         return _noise(32, 48, 3), _noise(32, 48, 3)
+    if name in STRESS:  # the kernel's corners: pfv_torch.synth.search_stress
+        kind, (h, w) = STRESS[name]
+        return synth.search_stress(kind, h, w, seed=7)
     if name == "padding ties":  # a frame's edge: texture, then the clear value
         cur, ref = _noise(48, 64, 4), _noise(48, 64, 5)
         cur[20:, :], ref[20:, :] = 128, 128
@@ -56,8 +60,12 @@ def _case(name):
     return _panned(64, 96, dx, dy, 6)
 
 
+STRESS = {"shifts 256x128": ("shifts", (128, 256)), "shifts 80x16": ("shifts", (16, 80)),
+          "shifts 16x80": ("shifts", (80, 16)), "mirror ties": ("mirror ties", (48, 96)),
+          "largest error": ("largest error", (32, 48)), "edges": ("edges", (64, 96))}
 CASES = ["noise 48x32", "noise 16x16", "noise 16x64", "noise 64x16", "noise 96x64", "flat",
-         "cur == ref", "padding ties", "pan (3, 1)", "pan (-15, 15)"]
+         "cur == ref", "padding ties", "pan (3, 1)", "pan (-15, 15)", *STRESS]
+LARGEST_ERR = 16 * 16 * 255 ** 2  # a source of 255 over a previous plane of 0
 
 
 def _jax_search(cur, ref):
@@ -94,9 +102,19 @@ def test_motion_search_matches_jax(name):
         assert not mvy.any()
     if name == "noise 64x16":
         assert not mvx.any()
+    if name == "shifts 80x16":  # one block high: the walk moves along x alone
+        assert not mvy.any() and set((mvx % 4).tolist()) == {0, 1, 2, 3}
+    if name == "shifts 16x80":  # one block wide: along y alone
+        assert not mvx.any() and len(set(mvy.tolist())) >= 4
+    if name == "shifts 256x128":  # every dx and dy, so every column phase of a window
+        assert set(mvx.tolist()) == set(mvy.tolist()) == set(range(-15, 16))
+    if name == "mirror ties":  # left and right tie: the lower priority, to the left, wins
+        assert mvx.any() and (mvx <= 0).all()
+    if name == "largest error":
+        assert (want[2] == LARGEST_ERR).all() and not mvx.any() and not mvy.any()
 
 
-@pytest.mark.parametrize("min_err", [0.0, 2304.0, 57600.0])
+@pytest.mark.parametrize("min_err", [0.0, 2304.0, 57600.0, LARGEST_ERR - 1.0, float(LARGEST_ERR)])
 @pytest.mark.parametrize("name", CASES)
 def test_motion_search_plain_matches_jax(name, min_err):
     """The frame form on one plane that is its own canvas, the rows filled
