@@ -90,8 +90,10 @@ from the repository root. Phases, one line each:
  14. time K6 per 1080p frame, an I-frame and a P-frame (CUDA events around
      one wrapped call, 100 calls back to back, the profiler's device time,
      the plain version alternating) and K8 per 1080p P-frame of both 1080p
-     sources in the same way, K8's SASS instructions per 16 pixels of a
-     candidate (cuobjdump), encode_video's frames/s per corpus,
+     sources in the same way and, by the profiler, after a fill that evicts
+     the L2 and after 2 ms of an idle card, K8's SASS instructions per 16
+     pixels of a candidate and registers (cuobjdump), encode_video's
+     frames/s per corpus,
      each layer of a whole 1080p encode (source H2D, the padding on the
      device, K8, K6, the in-loop frame step, compaction and D2H, host mux;
      each synchronized) and
@@ -224,8 +226,9 @@ RATES = {}
 # words, 1.5 wavefronts per load), 2 x 8 blocks a CTA of 16 warps, 3 CTAs an
 # SM, and runs about 18 SASS instructions per 16 pixels of a candidate
 # (sass_per_16px; 48 in the earlier form that took a candidate per
-# half-warp, word selects and funnel shifts included). The bound counts none of that body: its time goes to the wait
-# for the staged region (tools/k8_variants.py --probe).
+# half-warp, word selects and funnel shifts included). The bound counts none
+# of that body: the kernel waits on the loads of its staged region, not on
+# its instructions (PERF.md §6).
 DCT8_OPS = 36 + 3 * 12 + 6
 IDCT_OPS = 1 + 2 * DCT8_OPS / 8 + 5
 FDCT_OPS = 4 + 2 * DCT8_OPS / 8 + 8
@@ -309,17 +312,31 @@ def card_rates() -> dict:
             "sms": sms, "mhz": mhz}
 
 
-def device_ms(fn, kernel: str, reps: int = 3) -> float:
-    """The profiler's device time per call of fn of the kernels whose name
-    holds `kernel`, ms; 0.0 when the profiler saw none."""
+def device_profile(fn, kernel: str, reps: int):
+    """(The profiler's device time of the kernels whose name holds `kernel`
+    over reps calls of fn, ms; the launches of them it saw)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-             if kernel in e.key)
-    return us / reps / 1e3
+    seen = [e for e in prof.key_averages()
+            if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.device_time_total for e in seen) / 1e3, sum(e.count for e in seen)
+
+
+def device_ms(fn, kernel: str, reps: int = 3) -> float:
+    """The profiler's device time per call of fn of the kernels whose name
+    holds `kernel`, ms; 0.0 when the profiler saw none."""
+    return device_profile(fn, kernel, reps)[0] / reps
+
+
+def launch_us(fn, kernel: str, reps: int = 10) -> str:
+    """The profiler's device time per launch it saw of the kernels whose
+    name holds `kernel` over reps calls of fn, as text with the launches
+    seen; a launch the profiler drops does not count as one of 0 us."""
+    ms, seen = device_profile(fn, kernel, reps)
+    return f"{1e3 * ms / seen:.2f} us ({seen} launches seen)" if seen else "not measured"
 
 
 def random_vectors(maps, seed: int):
@@ -610,6 +627,20 @@ def sass_per_16px(so_path: str, kernel: str = "motion_search_kernel"):
                 n = idp[-1] - idp[0] + 1
                 return n, len(idp), n / (33 * 256 / 32 / 16)
     return None
+
+
+def kernel_registers(so_path: str, kernel: str = "motion_search_kernel"):
+    """The registers per thread of the library's kernel from cuobjdump
+    -res-usage; None where cuobjdump is missing or fails or the kernel is
+    not found."""
+    exe = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    try:
+        out = subprocess.run([exe, "-res-usage", so_path], capture_output=True, text=True,
+                             check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    m = re.search(r"Function [^\n]*" + kernel + r"[^\n]*\n\s*REG:(\d+)", out)
+    return int(m.group(1)) if m else None
 
 
 def first_pframe(name, srcs, dev):
@@ -1441,6 +1472,7 @@ def main() -> int:
         + f", bound {1e3 * bounds['K6'][kind][0]:.3f} us ({bounds['K6'][kind][1]})"
         for kind in k6_calls) + f" ({card})")
     times["K8"], bounds["K8"] = {}, {}
+    l2_fill = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the 50 MiB L2
     for name in TIMED:
         layout, sources, prev = k8_in[name]
         search = MotionSearch(layout, skip_threshold(QUALITY), dev)
@@ -1457,20 +1489,34 @@ def main() -> int:
         cands = least_candidates(layout)
         bounds["K8"][name] = motion_search_bound(g, cands)
         k8_run = timed_ms(lambda: [k8_frame() for _ in range(100)]) / 100
-        k8_us = 1e3 * device_ms(k8_frame, "motion_search_kernel", reps=10)
+
+        def k8_after_fill():  # the L2 holds none of the search's inputs
+            l2_fill.zero_()
+            k8_frame()
+
+        def k8_after_idle():  # the card idle for 2 ms, the L2 kept
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+            k8_frame()
+
+        k8_us = [launch_us(fn, "motion_search_kernel")
+                 for fn in (k8_frame, k8_after_fill, k8_after_idle)]
         print(f"phase 14 K8 per 1080p P-frame, {name} frame 1 (Y, U and V in one call, "
               f"{g.nb} blocks, at least {cands} candidates summed, {int(k8_rows[2].sum())} blocks "
               f"coded): one wrapped call {times['K8'][name][0]:.4f} ms, 100 back to back "
               f"{k8_run:.4f} ms per frame, plain {times['K8'][name][1]:.4f} ms, device time "
-              + (f"{k8_us:.2f} us" if k8_us else "not measured (no device time seen)")
+              + f"{k8_us[0]} (after a 256 MiB fill that evicts the L2 {k8_us[1]}, after 2 "
+              f"ms of an idle card {k8_us[2]})"
               + f", bound {1e3 * bounds['K8'][name][0]:.3f} us ({bounds['K8'][name][1]}; "
               f"bytes {1e3 * bounds['K8'][name][2]:.3f}, operations "
               f"{1e3 * bounds['K8'][name][3]:.3f}) ({card})")
-    sass = sass_per_16px(build.SO_PATH)
+    del l2_fill
+    sass, regs = sass_per_16px(build.SO_PATH), kernel_registers(build.SO_PATH)
     print("phase 14 K8 SASS (cuobjdump -sass of the built library): " + (
         f"{sass[0]} instructions from the first IDP.4A to the last, {sass[1]} IDP.4A: "
         f"{sass[2]:.2f} instructions per 16 pixels of a candidate (SEARCH_OPS "
-        f"{SEARCH_OPS})" if sass else "not measured (cuobjdump failed)"))
+        f"{SEARCH_OPS})" if sass else "not measured (cuobjdump failed)")
+        + f"; {regs if regs else 'not read'} registers per thread (cuobjdump -res-usage)")
     fps = {}
     for name, planes in srcs.items():
         runs = [host_ms(lambda: encode_video(*planes, FPS, QUALITY, KEYFRAMES,

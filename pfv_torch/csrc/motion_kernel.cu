@@ -65,33 +65,29 @@
 //
 // Occupancy: 40 registers and 51,520 bytes of dynamic shared memory a CTA of
 // 512 threads: 3 CTAs (48 warps) an SM, registers bound; a 1080p frame's
-// 782 CTAs are 1.97 waves on 132 SMs. Measured on an H100 (tools/
-// k8_variants.py, profiler device time per 1080p P-frame): 8 x 2 blocks
-// 12.2 us, 4 x 2 12.8, 8 x 1 13.2 (6 CTAs an SM, 1,564 CTAs). A persistent
-// grid that fetched the next tile with cp.async while it searched one needed
-// 64 registers, so 2 CTAs an SM, and was slower.
+// 782 CTAs are 1.97 waves on 132 SMs. Of the CTA shapes measured on an
+// H100 (PERF.md §6), two block rows of 8 was the fastest; one row of 8
+// (6 CTAs an SM) and two rows of 4 were 5-9 % slower, and a persistent grid that fetched the next
+// tile with cp.async while it searched one needed 64 registers, so 2 CTAs
+// an SM, and was slower still.
 //
 // What bounds it on this card: the bytes, 1 B per pixel of source and of
 // previous plane and 3 B of header per block; the search itself needs only
 // the eight byte-wise SIMD operations and one add per 16 pixels of a
 // candidate (33 candidates per block away from the plane's edges), a little
-// less time than the bytes at 1080p. The body runs 18 SASS instructions per
-// 16 pixels of a candidate (48 in a form with a candidate per half-warp),
-// but a warp spends most of its cycles waiting for its CTA's region and
-// sources (tools/k8_variants.py --probe: about 7,900 cycles staging, 6,800
-// the sources and the centre, 3,200 the four steps): the kernel is bound by
-// the latency of its loads, not by its arithmetic.
+// less time than the bytes at 1080p. The body runs about 18 SASS
+// instructions per 16 pixels of a candidate (48 in a form with a candidate
+// per half-warp), but a warp spends most of its cycles waiting for its
+// CTA's region and sources, not in the four steps (PERF.md §6): the
+// kernel is bound by the latency of its loads, not by its arithmetic.
+//
+// Row strides are ints in the kernel: the wrapper and the entry refuse a
+// stride of kMaxStride bytes or more, so that a staged row's offset, below
+// kRows strides, stays below 2^31.
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
-
-#ifndef PFV_K8_BLOCKS
-#define PFV_K8_BLOCKS 8  // blocks per CTA row: 4 or 8
-#endif
-#ifndef PFV_K8_ROWS
-#define PFV_K8_ROWS 2  // block rows per CTA: 1 or 2
-#endif
 
 namespace {
 
@@ -99,21 +95,20 @@ using u32 = unsigned int;
 
 constexpr int kMaxPlanes = 3;
 constexpr int kMaxDevices = 64;
-constexpr int kBlocks = PFV_K8_BLOCKS;      // blocks per CTA row
-constexpr int kBlockRows = PFV_K8_ROWS;     // block rows per CTA
+constexpr int kBlocks = 8;                  // blocks per CTA row
+constexpr int kBlockRows = 2;               // block rows per CTA
 constexpr int kThreads = 32 * kBlocks * kBlockRows;  // a warp a block
 constexpr int kReach = 15;                  // 8 + 4 + 2 + 1
 constexpr int kRows = 16 * kBlockRows + 2 * kReach;  // rows the CTA's searches can reach
 constexpr int kChunks = kBlocks + 2;        // 16-byte chunks of a staged row, at most
 constexpr int kItems = (kRows * kChunks + kThreads - 1) / kThreads;  // chunks per thread
 // words per row of a copy and per copy: see the note on banks above
-constexpr int kPitch = kBlocks == 4 ? 25 : 47;
-constexpr int kCopy = kRows * kPitch + ((kBlocks == 4 ? 1 : 20) - kRows * kPitch % 32 + 32) % 32;
+constexpr int kPitch = 47;  // 15 mod 32
+constexpr int kCopy = kRows * kPitch + (20 - kRows * kPitch % 32 + 32) % 32;  // 20 mod 32
 constexpr int kSrcPitch = 16 * kBlocks + 16;  // bytes per source row: 16 apart in banks
 constexpr int kSmem = 16 * kCopy + 16 * kBlockRows * kSrcPitch;  // bytes
-static_assert(kBlocks == 4 || kBlocks == 8, "PFV_K8_BLOCKS must be 4 or 8");
-static_assert(kBlockRows == 1 || kBlockRows == 2, "PFV_K8_ROWS must be 1 or 2");
 static_assert(kPitch >= 4 * kChunks && kCopy >= kRows * kPitch, "the tile is too small");
+constexpr long long kMaxStride = 1ll << 25;  // bytes; kRows * kMaxStride < 2^31
 
 struct Plane {
   const uint8_t* src;   // its (0, 0) in the source
@@ -136,23 +131,6 @@ struct Planes {
 __device__ __forceinline__ int ring_x(int k) { return (k - 1 + (k > 4)) % 3 - 1; }
 __device__ __forceinline__ int ring_y(int k) { return (k - 1 + (k > 4)) / 3 - 1; }
 
-#ifdef PFV_K8_PROBE  // tools/k8_variants.py --probe: where a warp's cycles go
-// clock64 spans summed over the warps: the staging, the sources and the
-// centre, the four steps; and the warps
-__device__ unsigned long long k8_probe[4];
-__device__ __forceinline__ long long probe_clock() { return clock64(); }
-__device__ __forceinline__ void probe_add(long long t0, long long t1, long long t2) {
-  const long long t3 = clock64();
-  atomicAdd(&k8_probe[0], (unsigned long long)(t1 - t0));
-  atomicAdd(&k8_probe[1], (unsigned long long)(t2 - t1));
-  atomicAdd(&k8_probe[2], (unsigned long long)(t3 - t2));
-  atomicAdd(&k8_probe[3], 1ull);
-}
-#else
-__device__ __forceinline__ long long probe_clock() { return 0; }
-__device__ __forceinline__ void probe_add(long long, long long, long long) {}
-#endif
-
 // The squared error of 4 pixels, added to s.
 __device__ __forceinline__ u32 sq4(u32 c, u32 w, u32 s) {
   const u32 d = __vabsdiffu4(c, w);
@@ -164,7 +142,6 @@ motion_search_kernel(int8_t* __restrict__ mvy, int8_t* __restrict__ mvx,
                      uint8_t* __restrict__ hc, float min_err, const Planes planes) {
   extern __shared__ __align__(16) u32 smem[];
   u32* tile = smem;  // the four copies
-  const long long t0 = probe_clock();
   // the CTA's source blocks
   auto blocks = reinterpret_cast<uint8_t (*)[kSrcPitch]>(smem + 4 * kCopy);
 
@@ -224,7 +201,6 @@ motion_search_kernel(int8_t* __restrict__ mvy, int8_t* __restrict__ mvx,
   if (source) *reinterpret_cast<uint4*>(&blocks[sr][16 * sc]) = sv;
   __syncthreads();
 
-  const long long t1 = probe_clock();
   const int warp = threadIdx.x >> 5, wr = warp / kBlocks, wc = warp - wr * kBlocks;
   const int gc = gc0 + wc, by = y0 + 16 * wr;
   // whole warps leave: the shuffles below are over full warps
@@ -248,7 +224,6 @@ motion_search_kernel(int8_t* __restrict__ mvy, int8_t* __restrict__ mvx,
   const u32* c0 = tile + base - q * kPitch + word(bx, by + (lane & 15)) + 2 * (lane >> 4);
   int best = (int)__reduce_add_sync(0xFFFFFFFFu, sq4(own.y, c0[1], sq4(own.x, c0[0], 0u)))
              << 4;  // err * 16 + priority; the centre's priority is 0
-  const long long t2 = probe_clock();
   int cx = bx, cy = by;
 #pragma unroll
   for (int step = 8; step >= 1; step >>= 1) {
@@ -279,7 +254,6 @@ motion_search_kernel(int8_t* __restrict__ mvy, int8_t* __restrict__ mvx,
     }
   }
   if (lane == 0) {
-    probe_add(t0, t1, t2);
     const long long b = P.first + (long long)(by >> 4) * P.nbx + gc;
     mvx[b] = (int8_t)(cx - bx);
     mvy[b] = (int8_t)(cy - by);
@@ -307,7 +281,8 @@ int allow_smem() {
 }  // namespace
 
 // One motion search on `stream`; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a plane count outside 1..3).
+// (cudaErrorInvalidValue for a plane count outside 1..3 or a row stride of
+// kMaxStride bytes or more).
 // src0..src2: each plane's padded u8 source (row strides stride0..stride2,
 // 16-byte aligned rows); prev: the previous reconstruction canvas (row stride
 // prev_stride, 16-byte aligned rows); mvy, mvx (nb) i8 and hc (nb) u8: the
@@ -319,9 +294,11 @@ extern "C" int pfv_motion_search(const void* src0, const void* src1, const void*
                                  const void* prev, long long prev_stride, void* mvy,
                                  void* mvx, void* hc, float min_err,
                                  const long long* layout, int n, void* stream) {
-  if (n < 1 || n > kMaxPlanes) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kMaxPlanes || prev_stride >= kMaxStride) return (int)cudaErrorInvalidValue;
   const void* src[kMaxPlanes] = {src0, src1, src2};
   const long long stride[kMaxPlanes] = {stride0, stride1, stride2};
+  for (int k = 0; k < n; k++)
+    if (stride[k] >= kMaxStride) return (int)cudaErrorInvalidValue;
   Planes ps = {};
   ps.n = n;
   int ctas = 0;
@@ -346,22 +323,3 @@ extern "C" int pfv_motion_search(const void* src0, const void* src1, const void*
       (int8_t*)mvy, (int8_t*)mvx, (uint8_t*)hc, min_err, ps);
   return (int)cudaGetLastError();
 }
-
-// The CTAs of the search that one SM of the current device holds at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on an error.
-extern "C" int pfv_motion_search_occupancy(void) {
-  int n = 0;
-  return allow_smem() || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                             &n, motion_search_kernel, kThreads, kSmem)
-             ? -1 : n;
-}
-
-#ifdef PFV_K8_PROBE
-// The probe's four sums (cycles, cycles, cycles, warps) into out, then 0.
-extern "C" int pfv_motion_search_probe(unsigned long long* out) {
-  const unsigned long long zero[4] = {};
-  cudaError_t e = cudaMemcpyFromSymbol(out, k8_probe, sizeof(zero));
-  if (!e) e = cudaMemcpyToSymbol(k8_probe, zero, sizeof(zero));
-  return (int)e;
-}
-#endif

@@ -29,6 +29,10 @@ from pfv_torch.ops.motion import motion_search
 
 __all__ = ["MotionSearch", "motion_search_plain"]
 
+# The largest row stride the kernel takes is MAX_STRIDE - 1 bytes: it keeps
+# strides in 32-bit ints (csrc/motion_kernel.cu, kMaxStride).
+MAX_STRIDE = 1 << 25
+
 
 def motion_search_plain(sources, prev, layout, min_err, motion, origins=None):
     """The plain PyTorch version of a frame's motion search: per plane,
@@ -73,7 +77,8 @@ class MotionSearch:
     def check(self, sources, prev, motion) -> None:
         """Raise ValueError unless the call fits the layout: one source per
         plane and prev, a canvas holding the layout, each 2-D uint8 of at
-        least its size, unit column stride, 16-byte aligned rows; motion
+        least its size, unit column stride, 16-byte aligned rows of a
+        stride below MAX_STRIDE; motion
         (mvy, mvx, has_coeff) (>= blocks,) int8, int8, uint8, contiguous,
         apart from each other and from every input; all on the search's
         device."""
@@ -93,6 +98,9 @@ class MotionSearch:
                 raise ValueError(f"{name} must be 2-D uint8 of at least {(h, w)} with "
                                  f"unit column stride, got {t.dtype} {tuple(t.shape)} "
                                  f"{t.stride()}")
+            if t.stride(0) >= MAX_STRIDE:
+                raise ValueError(f"{name}'s row stride {t.stride(0)} is not below "
+                                 f"{MAX_STRIDE}")
             if t.data_ptr() % ALIGN or t.stride(0) % ALIGN:
                 raise ValueError(f"{name}'s rows must be 16-byte aligned")
         for t, dtype in zip(motion, (torch.int8, torch.int8, torch.uint8)):

@@ -30,7 +30,7 @@ from pfv_torch.kernels.fdct import FrameEncode, fdct_blocks, fdct_blocks_plain
 from pfv_torch.kernels.frame_step import FrameStep, plane_layout
 from pfv_torch.kernels.idct import decode_blocks, decode_blocks_plain
 from pfv_torch.kernels.mc import mc_reconstruct, mc_reconstruct_plain
-from pfv_torch.kernels.motion import MotionSearch, motion_search_plain
+from pfv_torch.kernels.motion import MAX_STRIDE, MotionSearch, motion_search_plain
 from pfv_torch.kernels.rgba import canvas_rgba, canvas_rgba_plain
 from pfv_torch.kernels.step import step_frames, step_frames_plain
 from pfv_torch.ops.blocks import block_origins
@@ -464,12 +464,17 @@ def _search_case(name, cuda):
 LARGEST_ERR = 16 * 16 * 255 ** 2  # a source of 255 over a previous plane of 0
 
 
-@pytest.mark.parametrize("min_err", [0.0, 2304.0, 57600.0, LARGEST_ERR - 1.0, float(LARGEST_ERR)])
-@pytest.mark.parametrize("name", ["plane 16x16", "plane 16x64", "plane 64x16", "plane 48x32",
-                                  "plane 4112x32", "frame 1920x1080", "frame 136x90",
-                                  "frame 18x10", "flat", "equal", "near", "1080p shifts",
-                                  "1080p mirror ties", "1080p largest error", "1080p edges",
-                                  "shifts 1920x16", "shifts 16x1088"])
+SEARCH_CASES = ["plane 16x16", "plane 16x64", "plane 64x16", "plane 48x32", "plane 4112x32",
+                "frame 1920x1080", "frame 136x90", "frame 18x10", "flat", "equal", "near",
+                "1080p shifts", "1080p mirror ties", "1080p largest error", "1080p edges",
+                "shifts 1920x16", "shifts 16x1088"]
+
+
+# every case at three thresholds, and the largest error just below and at its error
+@pytest.mark.parametrize("name,min_err",
+                         [(n, t) for n in SEARCH_CASES for t in (0.0, 2304.0, 57600.0)]
+                         + [("1080p largest error", LARGEST_ERR - 1.0),
+                            ("1080p largest error", float(LARGEST_ERR))])
 def test_motion_search_kernel_matches_plain(cuda, name, min_err):
     layout, src, prev = _search_case(name, cuda)
     search = MotionSearch(layout, min_err, cuda)
@@ -503,6 +508,26 @@ def test_motion_search_kernel_matches_plain(cuda, name, min_err):
         search(views, prev, again)
         for a, b in zip(again, got):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("in_source", [True, False])
+def test_motion_search_entry_refuses_a_stride_past_the_bound(cuda, in_source):
+    """The kernel keeps row strides in 32-bit ints: its entry refuses a
+    stride of MAX_STRIDE bytes or more (cudaErrorInvalidValue, 1) and
+    launches nothing."""
+    from pfv_torch.kernels import build
+
+    layout, src, prev = _search_case("plane 16x16", cuda)
+    search = MotionSearch(layout, 0.0, cuda)
+    rows = [torch.full((1,), 7, dtype=d, device=cuda)
+            for d in (torch.int8, torch.int8, torch.uint8)]
+    strides = (MAX_STRIDE if in_source else src[0].stride(0),
+               prev.stride(0) if in_source else MAX_STRIDE)
+    rc = build.launch("pfv_motion_search", cuda, src[0].data_ptr(), None, None, strides[0],
+                      0, 0, prev.data_ptr(), strides[1], *(t.data_ptr() for t in rows),
+                      0.0, search._desc, 1)
+    torch.cuda.synchronize()
+    assert rc == 1 and all(bool((t == 7).all()) for t in rows)
 
 
 def _clip(w, h, f):

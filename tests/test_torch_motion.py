@@ -15,7 +15,7 @@ from pfv_torch import device as tdevice
 from pfv_torch import synth
 from pfv_torch.frame import canvas_layout, canvas_planes, geometry
 from pfv_torch.kernels.frame_step import plane_layout
-from pfv_torch.kernels.motion import MotionSearch, motion_search_plain
+from pfv_torch.kernels.motion import MAX_STRIDE, MotionSearch, motion_search_plain
 from pfv_torch.ops import blocks as tblocks
 from pfv_torch.ops import motion as tmotion
 from pfv_torch.ops.pframe import skip_threshold
@@ -114,8 +114,10 @@ def test_motion_search_matches_jax(name):
         assert (want[2] == LARGEST_ERR).all() and not mvx.any() and not mvy.any()
 
 
-@pytest.mark.parametrize("min_err", [0.0, 2304.0, 57600.0, LARGEST_ERR - 1.0, float(LARGEST_ERR)])
-@pytest.mark.parametrize("name", CASES)
+# every case at three thresholds, and the largest error just below and at its error
+@pytest.mark.parametrize("name,min_err", [(n, t) for n in CASES for t in (0.0, 2304.0, 57600.0)]
+                         + [("largest error", LARGEST_ERR - 1.0),
+                            ("largest error", float(LARGEST_ERR))])
 def test_motion_search_plain_matches_jax(name, min_err):
     """The frame form on one plane that is its own canvas, the rows filled
     with a sentinel before."""
@@ -195,7 +197,23 @@ def test_motion_search_wrapper_on_a_fused_canvas(w, h, quality):
         assert torch.equal(a[:g.nb], b[:g.nb])
 
 
+def _far_rows(in_source, stride):
+    """A call on one 16x16 plane whose source (in_source) or previous plane
+    has rows `stride` bytes apart: (layout, sources, prev, motion). The
+    storage between the rows is reserved, never written."""
+    rng = np.random.default_rng(2)
+    src, prev = (torch.from_numpy(rng.integers(0, 256, (16, 16), dtype=np.uint8))
+                 for _ in range(2))
+    far = torch.empty_strided((16, 16), (stride, 1), dtype=torch.uint8)
+    far.copy_(src if in_source else prev)
+    src, prev = (far, prev) if in_source else (src, far)
+    motion = [torch.zeros(1, dtype=d) for d in (torch.int8, torch.int8, torch.uint8)]
+    return plane_layout(16, 16), [src], prev, motion
+
+
 def _bad_call(kind):
+    if kind in ("source rows too far apart", "prev rows too far apart"):
+        return _far_rows(kind.startswith("source"), MAX_STRIDE)
     g, prev, src = _frame(96, 64, 1)
     tprev, tsrc = torch.from_numpy(prev), [torch.from_numpy(s) for s in src]
     headers = torch.zeros((3, g.nb), dtype=torch.int8)
@@ -226,11 +244,25 @@ def _bad_call(kind):
 @pytest.mark.parametrize("kind", ["two sources", "int16 source", "source too small",
                                   "misaligned source rows", "prev too small", "no prev",
                                   "short header rows", "int8 flags", "rows that overlap",
-                                  "rows inside prev"])
+                                  "rows inside prev", "source rows too far apart",
+                                  "prev rows too far apart"])
 def test_motion_search_refuses(kind):
     layout, src, prev, motion = _bad_call(kind)
     with pytest.raises(ValueError):
         MotionSearch(layout, 0.0, "cpu")(src, prev, motion)
+
+
+@pytest.mark.parametrize("in_source", [True, False])
+def test_motion_search_takes_rows_just_below_the_stride_bound(in_source):
+    """The kernel keeps row strides in 32-bit ints; the largest stride it
+    takes, MAX_STRIDE - 16, passes the check and searches as a contiguous
+    copy does."""
+    layout, src, prev, motion = _far_rows(in_source, MAX_STRIDE - 16)
+    MotionSearch(layout, 0.0, "cpu")(src, prev, motion)
+    want = [torch.full_like(t, 7) for t in motion]
+    motion_search_plain([src[0].contiguous()], prev.contiguous(), layout, 0.0, want)
+    for a, b in zip(motion, want):
+        assert torch.equal(a, b)
 
 
 def test_motion_search_refuses_a_layout_of_part_blocks():
