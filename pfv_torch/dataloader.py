@@ -25,7 +25,9 @@ P-frame predicts it from the reference framebuffer (Y 0, U and V 128). The
 canvas fuses the three planes: Y at rows [0, ly0), U and V side by side
 below it, V starting at column lcw. Every public entry point takes an
 explicit `device` ("cuda" by default) and leaves its result there; a CPU
-device runs the kernels' plain PyTorch versions.
+device runs the kernels' plain PyTorch versions. The demux, the upload, the
+tables, densify, the frame step and K2 each open a span `pfv.decode.*` of
+`utils.profiling`, on only while a profiler session records.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from pfv_torch.kernels.dense_step import MAX_ROW_SPAN, seq_frames_dense, step_go
 from pfv_torch.kernels.rgba import canvas_rgba
 from pfv_torch.kernels.step import lanes_per_stripe, step_frames
 from pfv_torch.ops.quant import DCT_SCALE_FACTOR, INV_ZIGZAG_TABLE
+from pfv_torch.utils.profiling import count, span
 
 UNITS_CHUNK = 128  # units per chunk of the tile demux
 GOP_MAX_BLOCKS = 4096  # the GOP route takes small frames only (SD, not 1080p)
@@ -176,31 +179,32 @@ def choose_route(data: bytes, num_threads: int = 0) -> Route:
     """Pick the route by the stream's geometry (and, above width 4096, its
     keyframe pattern), then run the route's demux. Raises ValueError for a
     q-table index the header does not have."""
-    hdr, _ = runtime.parse_header(data)
-    g = geometry(hdr["width"], hdr["height"])
-    nq = hdr["qtables"].shape[0]
-    if failed_gate(g) is None:
-        info, units, coff, bh, ftype, qidx = runtime.demux_file_sparse_tiles(
-            data, tile_tables(g), chunk=UNITS_CHUNK, num_threads=num_threads)
-        stream_gate(qidx, nq)
-        return Route(g, "units", None, (info, g, units, coff, _pack_meta(bh, ftype, qidx)),
-                     leading_p=bool(ftype.size and ftype[0] == 2))
-    gate = dense_gate(g)
-    if gate is not None:
-        return Route(g, "frames", gate, None)
-    _, spans = scan_packets(data)
-    ftype = np.array([t for a, b, t in spans if makes_frame(a, b, t)], np.uint8)
-    cap = dense_chunk_frames(g)
-    gops = gop_shape(ftype, g.nb)
-    if gops is not None and gops[0] * gops[1] <= cap:
-        host = demux_host_packed(data, num_threads)
-        stream_gate(_frame_meta(host[4], g.nb)[1], nq)
-        return Route(g, "gops", None, host, gops)
-    hosts = [demux_host_packed(c, num_threads)
-             for c in frame_chunks(data, spans, ftype.size, cap)]
-    for host in hosts:
-        stream_gate(_frame_meta(host[4], g.nb)[1], nq)
-    return Route(g, "dense", None, hosts, leading_p=bool(ftype.size and ftype[0] == 2))
+    with span("decode.demux"):
+        hdr, _ = runtime.parse_header(data)
+        g = geometry(hdr["width"], hdr["height"])
+        nq = hdr["qtables"].shape[0]
+        if failed_gate(g) is None:
+            info, units, coff, bh, ftype, qidx = runtime.demux_file_sparse_tiles(
+                data, tile_tables(g), chunk=UNITS_CHUNK, num_threads=num_threads)
+            stream_gate(qidx, nq)
+            return Route(g, "units", None, (info, g, units, coff, _pack_meta(bh, ftype, qidx)),
+                         leading_p=bool(ftype.size and ftype[0] == 2))
+        gate = dense_gate(g)
+        if gate is not None:
+            return Route(g, "frames", gate, None)
+        _, spans = scan_packets(data)
+        ftype = np.array([t for a, b, t in spans if makes_frame(a, b, t)], np.uint8)
+        cap = dense_chunk_frames(g)
+        gops = gop_shape(ftype, g.nb)
+        if gops is not None and gops[0] * gops[1] <= cap:
+            host = demux_host_packed(data, num_threads)
+            stream_gate(_frame_meta(host[4], g.nb)[1], nq)
+            return Route(g, "gops", None, host, gops)
+        hosts = [demux_host_packed(c, num_threads)
+                 for c in frame_chunks(data, spans, ftype.size, cap)]
+        for host in hosts:
+            stream_gate(_frame_meta(host[4], g.nb)[1], nq)
+        return Route(g, "dense", None, hosts, leading_p=bool(ftype.size and ftype[0] == 2))
 
 
 def demux_host(data: bytes, num_threads: int = 0):
@@ -258,8 +262,9 @@ def block_maps(g: Geometry, mvx, mvy, hc):
         out[:, g.gly:, guw:2 * guw] = pb[:, yb + cb:].reshape(f, gchc, guw)
         return out
 
-    return (canvas_order(mvy, torch.int8), canvas_order(mvx, torch.int8),
-            canvas_order(hc, torch.uint8))
+    with span("decode.tables"):
+        return (canvas_order(mvy, torch.int8), canvas_order(mvx, torch.int8),
+                canvas_order(hc, torch.uint8))
 
 
 def frame_multipliers(qtables, qidx) -> torch.Tensor:
@@ -276,14 +281,19 @@ def frame_multipliers(qtables, qidx) -> torch.Tensor:
 def pageable_copy(dev):
     """The plain host-to-device copy of a list of numpy arrays: one
     blocking `.to(dev)` each, from pageable memory, on the current stream."""
-    return lambda arrays: [torch.from_numpy(a).to(dev) for a in arrays]
+    def h2d(arrays):
+        with span("decode.h2d"):
+            count("decode.h2d_bytes", sum(a.nbytes for a in arrays))
+            return [torch.from_numpy(a).to(dev) for a in arrays]
+    return h2d
 
 
 def _meta_tables(g: Geometry, meta_t, qtables_t):
     """The meta words (int16 bits) and the q-tables, both on the device ->
     (mvx, mvy, hc (F, nb), ftype (F,) int32, qmul (F, 3, 64) int32)."""
-    mvx, mvy, hc, ftype, qidx = unpack_meta(meta_t.to(torch.int32) & 0xFFFF, g.nb)
-    return mvx, mvy, hc, ftype.contiguous(), frame_multipliers(qtables_t, qidx)
+    with span("decode.tables"):
+        mvx, mvy, hc, ftype, qidx = unpack_meta(meta_t.to(torch.int32) & 0xFFFF, g.nb)
+        return mvx, mvy, hc, ftype.contiguous(), frame_multipliers(qtables_t, qidx)
 
 
 def upload_meta(info, g: Geometry, meta, dev):
@@ -349,8 +359,9 @@ def _densified(g: Geometry, pstep, frames: int = 0):
     """`upload_pstep`'s tensors with the unit stream densified: (coeffs
     (max(F, frames), 64, row_span) i16, mvx, mvy, hc, ftype, qmul)."""
     d, v, *tables = pstep
-    return (densify_pstep(d, v, max(tables[3].shape[0], frames), pstep_tables(g)[2]),
-            *tables)
+    with span("decode.densify"):
+        coeffs = densify_pstep(d, v, max(tables[3].shape[0], frames), pstep_tables(g)[2])
+    return (coeffs, *tables)
 
 
 def upload_packed(host, frames: int = 0, device="cuda"):
@@ -453,13 +464,14 @@ def upload_route(route: Route, device="cuda", h2d=None):
     ("units"), `upload_pstep`'s tensors ("gops"), a list of them, one per
     chunk ("dense"), None ("frames": that route uploads frame by frame as it
     decodes)."""
-    if route.kind == "units":
-        return upload(route.host, device, h2d)[1]
-    if route.kind == "gops":
-        return upload_pstep(route.host, device, h2d)[1]
-    if route.kind == "dense":
-        return upload_chunks(route.host, device, h2d)[1]
-    return None
+    with span("decode.upload"):
+        if route.kind == "units":
+            return upload(route.host, device, h2d)[1]
+        if route.kind == "gops":
+            return upload_pstep(route.host, device, h2d)[1]
+        if route.kind == "dense":
+            return upload_chunks(route.host, device, h2d)[1]
+        return None
 
 
 def run_route(route: Route, uploaded, data: bytes, device="cuda"):
@@ -467,16 +479,17 @@ def run_route(route: Route, uploaded, data: bytes, device="cuda"):
     tensors, on the current stream -> (F, chh, cw) u8 canvases. `route.host`
     is not read; `data`, the stream's bytes, only by route "frames"."""
     g = route.g
-    if route.kind == "gops":
-        return _gops_canvases(g, uploaded[5].shape[0],
-                              *_gop_inputs(g, uploaded, *route.gops))
-    if route.kind == "frames":
-        return decode_frames(data, device)[1]
-    dev = (uploaded[0] if route.kind == "units" else uploaded[0][0]).device
-    prev = initial_canvas(g, dev) if route.leading_p else None
-    if route.kind == "units":
-        return step_frames(*uploaded, g.chh, g.cw, g.gly, g.guw, prev)
-    return _dense_canvases(g, uploaded, prev)
+    with span("decode.step"):
+        if route.kind == "gops":
+            return _gops_canvases(g, uploaded[5].shape[0],
+                                  *_gop_inputs(g, uploaded, *route.gops))
+        if route.kind == "frames":
+            return decode_frames(data, device)[1]
+        dev = (uploaded[0] if route.kind == "units" else uploaded[0][0]).device
+        prev = initial_canvas(g, dev) if route.leading_p else None
+        if route.kind == "units":
+            return step_frames(*uploaded, g.chh, g.cw, g.gly, g.guw, prev)
+        return _dense_canvases(g, uploaded, prev)
 
 
 def decode_canvases(data: bytes, device="cuda", num_threads: int = 0):
@@ -494,8 +507,16 @@ def _output(g: Geometry, canvases, want: str):
         return slice_yuv(g, canvases)
     if want == "checksums":
         return plane_checksums(*slice_yuv(g, canvases))
-    rgba = canvas_rgba(canvases, g.height, g.width, g.ly0, g.lcw)
+    with span("decode.rgba"):
+        rgba = canvas_rgba(canvases, g.height, g.width, g.ly0, g.lcw)
     return rgba if want == "rgba" else rgba_view(rgba)[..., :3]
+
+
+def _decode_clip(data: bytes, want: str, device="cuda", num_threads: int = 0):
+    """`decode_canvases` and then `_output`'s `want` of the canvases, in
+    the span "pfv.decode.clip"."""
+    with span("decode.clip"):
+        return _output(*decode_canvases(data, device, num_threads), want)
 
 
 def decode_packed_gops(host, g: int, l: int, want: str = "rgb", device="cuda"):
@@ -513,14 +534,14 @@ def decode_packed_gops(host, g: int, l: int, want: str = "rgb", device="cuda"):
 def decode_video_yuv(data: bytes, device="cuda", num_threads: int = 0):
     """Decode a whole .pfv stream to unpadded (Y, U, V) u8 tensors, views
     of the decode canvases on `device`."""
-    return _output(*decode_canvases(data, device, num_threads), "yuv")
+    return _decode_clip(data, "yuv", device, num_threads)
 
 
 def decode_video_rgba(data: bytes, device="cuda",
                       num_threads: int = 0) -> torch.Tensor:
     """Decode a whole .pfv stream to (F, H, W) uint32 packed RGBA (bytes R,
     G, B, A=255 in memory order; `rgba_view` gives the channels)."""
-    return _output(*decode_canvases(data, device, num_threads), "rgba")
+    return _decode_clip(data, "rgba", device, num_threads)
 
 
 def rgba_view(rgba: torch.Tensor) -> torch.Tensor:
@@ -531,7 +552,7 @@ def rgba_view(rgba: torch.Tensor) -> torch.Tensor:
 def decode_video_rgb(data: bytes, device="cuda",
                      num_threads: int = 0) -> torch.Tensor:
     """Decode a whole .pfv stream to a (F, H, W, 3) u8 RGB view."""
-    return _output(*decode_canvases(data, device, num_threads), "rgb")
+    return _decode_clip(data, "rgb", device, num_threads)
 
 
 def chunk_bounds(starts, frames: int, cap: int) -> list[int]:
@@ -591,4 +612,4 @@ def plane_checksums(y, u, v) -> torch.Tensor:
 def decode_video_checksums(data: bytes, device="cuda",
                            num_threads: int = 0) -> torch.Tensor:
     """Decode and return only the (F, 3) plane checksums, on `device`."""
-    return _output(*decode_canvases(data, device, num_threads), "checksums")
+    return _decode_clip(data, "checksums", device, num_threads)

@@ -33,6 +33,7 @@ from pfv_torch.frame import geometry
 from pfv_torch.ops.pframe import skip_threshold
 from pfv_torch.ops.quant import derive_q_tables
 from pfv_torch.parallel.devices import as_devices
+from pfv_torch.utils.profiling import count, span
 
 
 def _keyframe_mask(keyframes, f: int) -> np.ndarray:
@@ -68,12 +69,13 @@ def _encode_frames(enc: FrameEncoder, src, is_key):
     mvy = torch.zeros((f, g.nb), dtype=torch.int8, device=dev)
     hc = torch.ones((f, g.nb), dtype=torch.uint8, device=dev)
     enc.check([p[0] for p in src], live[0], (mvy[0], mvx[0], hc[0]))
-    for t in range(f):
-        planes = [p[t] for p in src]
-        if is_key[t]:
-            enc.iframe(planes, live[t])
-        else:
-            enc.pframe(planes, live[t], (mvy[t], mvx[t], hc[t]))
+    with span("encode.frame_loop"):
+        for t in range(f):
+            planes = [p[t] for p in src]
+            if is_key[t]:
+                enc.iframe(planes, live[t])
+            else:
+                enc.pframe(planes, live[t], (mvy[t], mvx[t], hc[t]))
     return live, mvx, mvy, hc
 
 
@@ -84,10 +86,11 @@ def _compact(live, mvx, mvy, hc):
     and the block headers. `torch.nonzero` waits for the device."""
     f = live.shape[0]
     flat = live.view(f, -1)
-    frame_of, idx = torch.nonzero(flat, as_tuple=True)
-    val = flat[frame_of, idx]
-    counts = torch.bincount(frame_of, minlength=f)
-    return idx.to(torch.int32), val, counts, mvx, mvy, hc
+    with span("encode.compact"):
+        frame_of, idx = torch.nonzero(flat, as_tuple=True)
+        val = flat[frame_of, idx]
+        counts = torch.bincount(frame_of, minlength=f)
+        return idx.to(torch.int32), val, counts, mvx, mvy, hc
 
 
 def _mux(w: int, h: int, framerate: int, qt_host, nb: int, is_key, idx, val, counts,
@@ -119,8 +122,9 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
     I-frames) or an explicit bool mask whose first entry is set. `timer`,
     any object whose `stage(name)` is a context manager, receives the
     stages "h2d upload", "device encode", "d2h fetch" and "host mux"; the
-    device stages end with a synchronize. Byte-identical to feeding the
-    frames through the streaming Encoder.
+    device stages end with a synchronize. Each stage is also the span
+    "pfv.encode." + its name in snake case (`utils.profiling.span`).
+    Byte-identical to feeding the frames through the streaming Encoder.
     """
     stage = timer.stage if timer is not None else (lambda name: contextlib.nullcontext())
     f, h, w = y.shape
@@ -131,19 +135,23 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
     g = geometry(w, h)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
-    with stage("h2d upload"):
-        enc = FrameEncoder(g, qt_host, skip_threshold(quality), dev)
-        src = upload_padded(g, (y, u, v), dev)
-        sync()
+    with stage("h2d upload"), span("encode.h2d_upload"):
+        with span("encode.encoder_setup"):
+            enc = FrameEncoder(g, qt_host, skip_threshold(quality), dev)
+        with span("encode.source_upload"):
+            count("encode.h2d_bytes", y.nbytes + u.nbytes + v.nbytes)
+            src = upload_padded(g, (y, u, v), dev)
+            sync()
 
-    with stage("device encode"):
+    with stage("device encode"), span("encode.device_encode"):
         coded = _compact(*_encode_frames(enc, src, is_key))
-        sync()
+        with span("encode.device_wait"):
+            sync()
 
-    with stage("d2h fetch"):
+    with stage("d2h fetch"), span("encode.d2h_fetch"):
         coded = [t.cpu().numpy() for t in coded]
 
-    with stage("host mux"):
+    with stage("host mux"), span("encode.host_mux"):
         return _mux(w, h, framerate, qt_host, g.nb, is_key, *coded)
 
 

@@ -31,6 +31,7 @@ import torch
 
 from pfv_torch.dataloader import _output, choose_route, run_route, upload_route
 from pfv_torch.parallel.devices import resolved
+from pfv_torch.utils.profiling import count, span
 
 ALIGN = 256  # bytes: every array of a staged clip starts at a multiple
 
@@ -48,22 +49,24 @@ class PinnedStager:
         self._copied = torch.cuda.Event()
 
     def __call__(self, arrays) -> list[torch.Tensor]:
-        arrays = [np.ascontiguousarray(a) for a in arrays]
-        offsets = [0]
-        for a in arrays:
-            offsets.append(offsets[-1] + -(-a.nbytes // ALIGN) * ALIGN)
-        total = offsets[-1]
-        self.wait()
-        if self._pinned.numel() < total:
-            self._pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-        host = self._pinned.numpy()
-        for a, off in zip(arrays, offsets):
-            host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
-        dev = torch.empty(total, dtype=torch.uint8, device=self.device)
-        dev.copy_(self._pinned[:total], non_blocking=True)
-        self._copied.record(torch.cuda.current_stream(self.device))
-        return [dev[off:off + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
-                for a, off in zip(arrays, offsets)]
+        with span("decode.h2d"):
+            count("decode.h2d_bytes", sum(a.nbytes for a in arrays))
+            arrays = [np.ascontiguousarray(a) for a in arrays]
+            offsets = [0]
+            for a in arrays:
+                offsets.append(offsets[-1] + -(-a.nbytes // ALIGN) * ALIGN)
+            total = offsets[-1]
+            self.wait()
+            if self._pinned.numel() < total:
+                self._pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+            host = self._pinned.numpy()
+            for a, off in zip(arrays, offsets):
+                host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+            dev = torch.empty(total, dtype=torch.uint8, device=self.device)
+            dev.copy_(self._pinned[:total], non_blocking=True)
+            self._copied.record(torch.cuda.current_stream(self.device))
+            return [dev[off:off + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
+                    for a, off in zip(arrays, offsets)]
 
     def wait(self) -> None:
         """Block until the last copy has read the pinned buffer."""
@@ -94,7 +97,9 @@ class VideoDataLoader:
         `utils.profiling.StageTimer`) receives, per video, the worker's
         stages "read", "demux" and "upload" (the copy and the tables,
         enqueued) and the consumer's "wait" (for the worker) and "decode"
-        (the frame step and K2, enqueued).
+        (the frame step and K2, enqueued). "demux" and "upload" hold the
+        spans "pfv.decode.demux" and "pfv.decode.upload", "decode" the
+        spans "pfv.decode.step" and "pfv.decode.rgba".
     """
 
     def __init__(self, files: Iterable[bytes | str], num_threads: int = 0,

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from pfv_torch import runtime
-from pfv_torch.dataloader import _output, decode_canvases, rgba_view
+from pfv_torch.dataloader import _decode_clip, rgba_view
 from pfv_torch.parallel.devices import as_devices, each_device
 
 
@@ -77,7 +77,7 @@ def decode_stream_batch(datas: list[bytes], devices=None, num_threads: int = 0,
     per = len(datas) // len(devices)
 
     def group(k: int, dev: torch.device):
-        outs = [_output(*decode_canvases(d, dev, num_threads), want)
+        outs = [_decode_clip(d, want, dev, num_threads)
                 for d in datas[k * per:(k + 1) * per]]
         if want == "yuv":
             shard = tuple(torch.stack([o[j] for o in outs]) for j in range(3))

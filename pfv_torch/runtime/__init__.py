@@ -14,14 +14,18 @@ source is rebuilt.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import resource
 import subprocess
 import tempfile
 import threading
 
 import numpy as np
+
+from pfv_torch.utils.profiling import count, recording, span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC_PATH = os.path.join(_HERE, "native", "pfv_bitstream.cpp")
@@ -117,8 +121,10 @@ def _grow(payload_coder, *args) -> bytes:
     cap = args[-1]
     while True:
         out = np.empty(cap, dtype=np.uint8)
-        n = payload_coder(*args[:-1], out, cap)
+        with span("encode.entropy"):
+            n = payload_coder(*args[:-1], out, cap)
         if n >= 0:
+            count("encode.payload_bytes", n)
             return out[:n].tobytes()
         if n != -1:
             raise ValueError(f"unencodable coefficients (code {n})")
@@ -284,6 +290,27 @@ def count_frames(data: bytes) -> int:
     return int(nf)
 
 
+@contextlib.contextmanager
+def _native_demux(data: bytes):
+    """The span "pfv.decode.demux_native" around one native demux call of
+    `data`, with counters while a profiler session records: the process's
+    CPU seconds over the call, every thread's, user and kernel mode
+    (`decode.demux_cpu_s`) and the kernel mode's part (`decode.demux_sys_s`),
+    and the bytes it was given (`decode.demux_bytes`). The call releases the
+    interpreter lock and joins its workers before it returns."""
+    if not recording():
+        yield
+        return
+    r0 = resource.getrusage(resource.RUSAGE_SELF)
+    with span("decode.demux_native"):
+        yield
+    r1 = resource.getrusage(resource.RUSAGE_SELF)
+    sys_s = r1.ru_stime - r0.ru_stime
+    count("decode.demux_cpu_s", r1.ru_utime - r0.ru_utime + sys_s)
+    count("decode.demux_sys_s", sys_s)
+    count("decode.demux_bytes", len(data))
+
+
 def demux_file_sparse_packed(data: bytes, num_threads: int = 0,
                              pad_to_multiple: int = 1, pstep_tables=None):
     """Sparse whole-file demux, device-upload form.
@@ -335,11 +362,14 @@ def demux_file_sparse_packed(data: bytes, num_threads: int = 0,
         off_of_b, r_of_zz, row_span = pstep_tables
         if row_span >= 1 << 24:
             raise ValueError("geometry too wide for pstep unit layout")
-        nunits = lib.pfv_demux_file_sparse_pstep(
-            *common, np.ascontiguousarray(off_of_b, dtype=np.int32),
-            np.ascontiguousarray(r_of_zz, dtype=np.int32), row_span, yb + cb)
+        off_of_b = np.ascontiguousarray(off_of_b, dtype=np.int32)
+        r_of_zz = np.ascontiguousarray(r_of_zz, dtype=np.int32)
+        with _native_demux(data):
+            nunits = lib.pfv_demux_file_sparse_pstep(*common, off_of_b, r_of_zz, row_span,
+                                                     yb + cb)
     else:
-        nunits = lib.pfv_demux_file_sparse(*common)
+        with _native_demux(data):
+            nunits = lib.pfv_demux_file_sparse(*common)
     if nunits == -8:
         raise ValueError("corrupt P-frame payload: motion vector out of bounds")
     if nunits < 0:
@@ -388,14 +418,14 @@ def demux_file_sparse_tiles(data: bytes, tile_tables, chunk: int = 128,
     coff = np.empty(nf * gch + 1, dtype=np.int32)
     bounds = _mv_bounds_packed(ly, lc)
     mv_absmax = np.zeros(1, dtype=np.int16)
-    nchunks = lib.pfv_demux_file_sparse_tiles(
-        buf, len(data), off, total_blocks, nf, bh.reshape(-1),
-        bounds.ctypes.data_as(ctypes.c_void_p), ftype, qidx.reshape(-1),
-        units.ctypes.data_as(ctypes.c_void_p), cap_chunks, coff, chunk,
-        mv_absmax.ctypes.data_as(ctypes.c_void_p), num_threads,
-        np.ascontiguousarray(stripe_of_b, dtype=np.int32),
-        np.ascontiguousarray(lanebase_of_b, dtype=np.int32),
-        np.ascontiguousarray(r_of_zz, dtype=np.int32), gch)
+    tables = [np.ascontiguousarray(t, dtype=np.int32)
+              for t in (stripe_of_b, lanebase_of_b, r_of_zz)]
+    with _native_demux(data):
+        nchunks = lib.pfv_demux_file_sparse_tiles(
+            buf, len(data), off, total_blocks, nf, bh.reshape(-1),
+            bounds.ctypes.data_as(ctypes.c_void_p), ftype, qidx.reshape(-1),
+            units.ctypes.data_as(ctypes.c_void_p), cap_chunks, coff, chunk,
+            mv_absmax.ctypes.data_as(ctypes.c_void_p), num_threads, *tables, gch)
     if nchunks == -8:
         raise ValueError("corrupt P-frame payload: motion vector out of bounds")
     if nchunks < 0:
