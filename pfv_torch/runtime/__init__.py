@@ -2,11 +2,19 @@
 
 `native/pfv_bitstream.cpp` is the PFV bitstream layer (Huffman/RLE payload
 coding, the container, every demux form, the scalar reference decoder),
-kept byte for byte equal to the JAX package's copy; this module binds the
-part of it the port uses through ctypes with numpy-array views.
+kept byte for byte equal to the JAX package's copy. The port's own source,
+`native/pfv_tile_demux.cpp`, includes that file and adds a persistent
+context for the tile demux (K1's route): workers that sleep between calls
+and unit buffers kept from one call to the next, sized by what the streams
+really produced. This module binds the part of the library the port uses
+through ctypes with numpy-array views.
+
+The tile demux holds memory after a call: per context (one per concurrent
+caller and `num_threads`), the high-water mark of the calls it served.
+`release_demux_memory()` frees the idle contexts' workers and buffers.
 
 The library is compiled with g++ at first use into `pfv_torch/build/`
-(which git ignores), under a name keyed by the source, the flags and the
+(which git ignores), under a name keyed by the sources, the flags and the
 instruction set `-march=native` resolves to on this host: a library built
 on another machine with other CPU features is never loaded, and a changed
 source is rebuilt.
@@ -28,7 +36,8 @@ import numpy as np
 from pfv_torch.utils.profiling import count, recording, span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC_PATH = os.path.join(_HERE, "native", "pfv_bitstream.cpp")
+_SRC_PATH = os.path.join(_HERE, "native", "pfv_tile_demux.cpp")  # includes the next
+_SOURCES = (_SRC_PATH, os.path.join(_HERE, "native", "pfv_bitstream.cpp"))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
 # -O2 measures equal-or-faster than -O3 on the branchy bit-twiddling loops
 CXX_FLAGS = ["-O2", "-march=native", "-fPIC", "-std=c++17", "-shared", "-pthread"]
@@ -38,13 +47,13 @@ _lib = None
 
 
 def so_path() -> str:
-    """Where the library for this source, these flags and this host's
+    """Where the library for these sources, these flags and this host's
     `-march=native` lives."""
     target = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
                             check=True, capture_output=True, text=True).stdout
     key = hashlib.sha256()
-    for part in (open(_SRC_PATH, "rb").read(), " ".join(CXX_FLAGS).encode(),
-                 target.encode()):
+    sources = [open(path, "rb").read() for path in _SOURCES]
+    for part in (*sources, " ".join(CXX_FLAGS).encode(), target.encode()):
         key.update(hashlib.sha256(part).digest())
     return os.path.join(BUILD_DIR, f"libpfv_bitstream-{key.hexdigest()[:16]}.so")
 
@@ -75,6 +84,7 @@ def get_lib() -> ctypes.CDLL:
         p_i8 = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
         p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         p_u16 = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+        p_u32 = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
         p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 
         lib.pfv_encode_iframe_payload.restype = i64
@@ -111,6 +121,16 @@ def get_lib() -> ctypes.CDLL:
         lib.pfv_demux_file_sparse_tiles.argtypes = [
             p_u8, i64, i64, i64, i64, p_u16, vp, p_u8, p_u8, vp, i64, p_i32,
             i64, vp, ctypes.c_int32, p_i32, p_i32, p_i32, i64]
+        lib.pfv_tile_demux_new.restype = vp
+        lib.pfv_tile_demux_new.argtypes = [ctypes.c_int32]
+        lib.pfv_tile_demux_free.restype = None
+        lib.pfv_tile_demux_free.argtypes = [vp]
+        lib.pfv_tile_demux_decode.restype = i64
+        lib.pfv_tile_demux_decode.argtypes = [
+            vp, p_u8, i64, i64, i64, i64, p_u16, p_i32, p_u8, p_u8, i64, p_i16,
+            p_i32, p_i32, p_i32, i64, ctypes.POINTER(i64)]
+        lib.pfv_tile_demux_splice.restype = i64
+        lib.pfv_tile_demux_splice.argtypes = [vp, p_u32, i64, p_i32]
         _lib = lib
         return _lib
 
@@ -384,6 +404,57 @@ def demux_file_sparse_packed(data: bytes, num_threads: int = 0,
     return info, deltas[:padded], vals[:padded], bh, ftype, qidx
 
 
+class _Contexts:
+    """The idle native tile-demux contexts, by `num_threads`. A call takes
+    the idle one returned last or makes one, so concurrent callers (the
+    loader's worker, a stream batch, the streaming Decoder) each hold their
+    own, and one caller's calls find the buffers it grew."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.idle: list[tuple[int, int]] = []
+
+    @contextlib.contextmanager
+    def take(self, lib, num_threads: int):
+        with self.lock:
+            i = next((i for i in reversed(range(len(self.idle)))
+                      if self.idle[i][0] == num_threads), None)
+            ctx = None if i is None else self.idle.pop(i)[1]
+        if ctx is None:
+            ctx = lib.pfv_tile_demux_new(num_threads)
+            if not ctx:
+                raise MemoryError("no memory for a tile demux context")
+        try:
+            yield ctx
+        finally:
+            with self.lock:
+                self.idle.append((num_threads, ctx))
+
+    def release(self, lib) -> None:
+        with self.lock:
+            idle, self.idle = self.idle, []
+        for _, ctx in idle:
+            lib.pfv_tile_demux_free(ctx)
+
+    def after_fork(self) -> None:
+        # the lock may have been held by a thread the child does not have;
+        # the contexts rebuild their workers on first use
+        self.lock = threading.Lock()
+
+
+_contexts = _Contexts()
+os.register_at_fork(after_in_child=_contexts.after_fork)
+
+
+def release_demux_memory() -> None:
+    """Free the workers and unit buffers that the tile demux keeps between
+    calls (each idle context holds the high-water mark of the calls it
+    served). A context in use keeps its memory until it is next released.
+    The next call makes a new context."""
+    if _lib is not None:
+        _contexts.release(_lib)
+
+
 def demux_file_sparse_tiles(data: bytes, tile_tables, chunk: int = 128,
                             num_threads: int = 0):
     """Tile-bucketed unit demux for the frame step's in-kernel densify.
@@ -397,7 +468,14 @@ def demux_file_sparse_tiles(data: bytes, tile_tables, chunk: int = 128,
 
     tile_tables = (stripe_of_b (B,) i32, lanebase_of_b (B,) i32,
     r_of_zz (64,) i32, gch). Returns (info, units, coff (F*gch + 1,) i32,
-    bh (F, B) u16, ftype (F,) u8, qidx (F, 3) u8)."""
+    bh (F, B) u16, ftype (F,) u8, qidx (F, 3) u8), every array new.
+
+    The work runs in a native context kept between calls (its workers, and
+    its per-frame unit buffers at the high-water mark of the calls it
+    served; `release_demux_memory` frees them); num_threads workers, 0 for
+    one per hardware thread. While a profiler session records, counts
+    `decode.demux_grow_bytes`, the buffer bytes a call added, and
+    `decode.demux_calls_reused`, the calls that added none."""
     lib = get_lib()
     info, off = parse_header(data)
     ly, lc, yb, cb = _plane_dims(info)
@@ -407,25 +485,27 @@ def demux_file_sparse_tiles(data: bytes, tile_tables, chunk: int = 128,
     nf = lib.pfv_count_frames(buf, len(data), off)
     if nf < 0:
         raise ValueError(f"corrupt packet stream (code {nf})")
-    # the per-frame unit bound of the sparse demux, plus one short chunk
-    # per tile
-    cap_chunks = (min(69 * len(data), 129 * total_blocks * 256 * nf) // chunk
-                  + nf * (gch + 1) + 64)
     bh = np.empty((nf, total_blocks), dtype=np.uint16)
     ftype = np.empty(nf, dtype=np.uint8)
     qidx = np.empty((nf, 3), dtype=np.uint8)
-    units = np.empty((cap_chunks, chunk), dtype=np.uint32)
     coff = np.empty(nf * gch + 1, dtype=np.int32)
     bounds = _mv_bounds_packed(ly, lc)
     mv_absmax = np.zeros(1, dtype=np.int16)
+    grown = ctypes.c_int64(0)
     tables = [np.ascontiguousarray(t, dtype=np.int32)
               for t in (stripe_of_b, lanebase_of_b, r_of_zz)]
-    with _native_demux(data):
-        nchunks = lib.pfv_demux_file_sparse_tiles(
-            buf, len(data), off, total_blocks, nf, bh.reshape(-1),
-            bounds.ctypes.data_as(ctypes.c_void_p), ftype, qidx.reshape(-1),
-            units.ctypes.data_as(ctypes.c_void_p), cap_chunks, coff, chunk,
-            mv_absmax.ctypes.data_as(ctypes.c_void_p), num_threads, *tables, gch)
+    with _contexts.take(lib, num_threads) as ctx, _native_demux(data):
+        nchunks = lib.pfv_tile_demux_decode(
+            ctx, buf, len(data), off, total_blocks, nf, bh.reshape(-1), bounds,
+            ftype, qidx.reshape(-1), chunk, mv_absmax, *tables, gch,
+            ctypes.byref(grown))
+        if nchunks >= 0:
+            units = np.empty((nchunks, chunk), dtype=np.uint32)
+            rc = lib.pfv_tile_demux_splice(ctx, units.reshape(-1), nchunks, coff)
+            if rc < 0:
+                nchunks = rc
+        count("decode.demux_grow_bytes", grown.value)
+        count("decode.demux_calls_reused", int(grown.value == 0))
     if nchunks == -8:
         raise ValueError("corrupt P-frame payload: motion vector out of bounds")
     if nchunks < 0:
@@ -433,7 +513,7 @@ def demux_file_sparse_tiles(data: bytes, tile_tables, chunk: int = 128,
     info["yb"], info["cb"], info["total_blocks"] = yb, cb, total_blocks
     info["mv_absmax"] = int(mv_absmax[0])
     info["unit_layout"] = "tiles"
-    return info, units[:nchunks], coff, bh, ftype, qidx
+    return info, units, coff, bh, ftype, qidx
 
 
 def ref_decode(data: bytes, emit: bool = True, max_frames: int = 1 << 30):
@@ -469,4 +549,5 @@ __all__ = ["count_frames", "decode_iframe_payload", "decode_pframe_payload",
            "demux_file_sparse_packed", "demux_file_sparse_tiles",
            "encode_iframe_payload", "encode_iframe_payload_sparse",
            "encode_pframe_payload", "encode_pframe_payload_sparse",
-           "get_lib", "parse_header", "ref_decode", "validate_motion"]
+           "get_lib", "parse_header", "ref_decode", "release_demux_memory",
+           "validate_motion"]
