@@ -7,13 +7,14 @@ whole macroblocks there. Each frame is encoded as the streaming Encoder
 does, through a `device.FrameEncoder` (for a P-frame one launch of K8, the
 motion search; one of K6, one of the in-loop frame step); K6 writes its
 coefficients, zeros in skipped blocks, straight into one (F, nb, 256) int16
-buffer. One
-`torch.nonzero` compacts the clip (the JAX package needs a counting pass
-and a guessed cap for this: XLA has no data-dependent shapes), one copy
-brings the nonzeros and the block headers to the host, and the shared C++
-runtime entropy-codes each frame from its nonzeros. The bytes equal the
-streaming Encoder's and the JAX package's. `encode_video_gops` gives each
-of a list of devices a run of whole GOPs and muxes once.
+buffer. `torch.nonzero` compacts it (the JAX package needs a counting pass
+and a guessed cap for this: XLA has no data-dependent shapes) in runs of
+whole frames, each of fewer than `COMPACT_LIMIT` elements, one run where the
+clip fits; one copy brings the nonzeros and the block headers to the host,
+and the shared C++ runtime entropy-codes each frame from its nonzeros. The
+bytes equal the streaming Encoder's and the JAX package's.
+`encode_video_gops` gives each of a list of devices a run of whole GOPs and
+muxes once.
 """
 
 from __future__ import annotations
@@ -33,7 +34,12 @@ from pfv_torch.frame import geometry
 from pfv_torch.ops.pframe import skip_threshold
 from pfv_torch.ops.quant import derive_q_tables
 from pfv_torch.parallel.devices import as_devices
-from pfv_torch.utils.profiling import count, span
+from pfv_torch.utils.profiling import count, recording, span
+
+# INT_MAX: CUDA builds of PyTorch before large-tensor support refuse a
+# `torch.nonzero` of this many elements or more, and a 4K clip's coefficient
+# buffer passes it at 173 frames. A run of the compaction holds fewer.
+COMPACT_LIMIT = 2**31 - 1
 
 
 def _keyframe_mask(keyframes, f: int) -> np.ndarray:
@@ -79,18 +85,37 @@ def _encode_frames(enc: FrameEncoder, src, is_key):
     return live, mvx, mvy, hc
 
 
+def compact_runs(f: int, nb: int) -> list[tuple[int, int]]:
+    """The runs of whole frames, (first, end) in order, that `_compact` cuts
+    an (f, nb, 256) coefficient buffer into: as many frames each as hold
+    fewer than `COMPACT_LIMIT` coefficients (at least one), the last run
+    the rest."""
+    step = max(1, (COMPACT_LIMIT - 1) // (nb * 256))
+    return [(a, min(a + step, f)) for a in range(0, f, step)]
+
+
 def _compact(live, mvx, mvy, hc):
-    """One compaction of `_encode_frames`' run -> (idx, val, counts, mvx,
+    """The compaction of `_encode_frames`' run -> (idx, val, counts, mvx,
     mvy, hc) on the device: every frame's nonzero coefficients (frame-local
     flat indices in ascending order, their values, the number per frame)
-    and the block headers. `torch.nonzero` waits for the device."""
-    f = live.shape[0]
-    flat = live.view(f, -1)
+    and the block headers. Each run of `compact_runs` is one `torch.nonzero`,
+    one gather and one `bincount`; the runs' outputs are joined in frame
+    order. `torch.nonzero` waits for the device."""
+    f, nb = live.shape[:2]
+    parts = []
     with span("encode.compact"):
-        frame_of, idx = torch.nonzero(flat, as_tuple=True)
-        val = flat[frame_of, idx]
-        counts = torch.bincount(frame_of, minlength=f)
-        return idx.to(torch.int32), val, counts, mvx, mvy, hc
+        runs = compact_runs(f, nb)
+        count("encode.coeff_bytes", live.nbytes)
+        count("encode.compact_runs", len(runs))
+        for a, b in runs:
+            with span("encode.compact_run"):
+                flat = live[a:b].view(b - a, -1)
+                frame_of, idx = torch.nonzero(flat, as_tuple=True)
+                val = flat[frame_of, idx]
+                counts = torch.bincount(frame_of, minlength=b - a)
+                parts.append((idx.to(torch.int32), val, counts))
+        joined = parts[0] if len(parts) == 1 else [torch.cat(p) for p in zip(*parts)]
+        return (*joined, mvx, mvy, hc)
 
 
 def _mux(w: int, h: int, framerate: int, qt_host, nb: int, is_key, idx, val, counts,
@@ -124,6 +149,9 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
     stages "h2d upload", "device encode", "d2h fetch" and "host mux"; the
     device stages end with a synchronize. Each stage is also the span
     "pfv.encode." + its name in snake case (`utils.profiling.span`).
+    While a profiler session records on a CUDA device, the call resets the
+    device's peak of allocated memory and adds it, read after the fetch, to
+    the counter "encode.live_peak_bytes" (0 on other devices).
     Byte-identical to feeding the frames through the streaming Encoder.
     """
     stage = timer.stage if timer is not None else (lambda name: contextlib.nullcontext())
@@ -134,6 +162,9 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
     dev = torch.device(device)
     g = geometry(w, h)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    peak = recording() and dev.type == "cuda"
+    if peak:
+        torch.cuda.reset_peak_memory_stats(dev)
 
     with stage("h2d upload"), span("encode.h2d_upload"):
         with span("encode.encoder_setup"):
@@ -150,6 +181,7 @@ def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,
 
     with stage("d2h fetch"), span("encode.d2h_fetch"):
         coded = [t.cpu().numpy() for t in coded]
+    count("encode.live_peak_bytes", torch.cuda.max_memory_allocated(dev) if peak else 0)
 
     with stage("host mux"), span("encode.host_mux"):
         return _mux(w, h, framerate, qt_host, g.nb, is_key, *coded)

@@ -20,6 +20,7 @@ from oracle import pfv_oracle as oracle
 
 import pfv_torch
 from pfv_torch import device as tdevice
+from pfv_torch import encoding as tencoding
 from pfv_torch import synth
 from pfv_torch.frame import canvas_layout, geometry
 from pfv_torch.ops import blocks as tblocks
@@ -234,6 +235,46 @@ def test_explicit_keyframe_mask_and_dropframe(clip):
     got, enc = _stream(pfv_torch.Encoder, clip, 3, keys, device="cpu")
     assert got == _stream(JaxEncoder, clip, 3, keys)[0] == _oracle(clip, 3, keys)
     assert [s["type"] for s in enc.stats] == ["I", "P", "P", "I", "P", "P", "P"]
+
+
+@pytest.mark.parametrize("keyframes", [4, "mask"])
+def test_encode_video_in_runs_of_whole_frames_is_byte_identical(monkeypatch, keyframes):
+    """`encode_video` with its compaction cut into runs of three frames,
+    across the keyframes (every 4, and a mask that drops the keyframe at 4
+    and adds one at 5 and 6), writes the bytes of one run and of the JAX
+    package."""
+    f = 10
+    frames = [synth.synth_yuv_frame(t, W, H) for t in range(f)]
+    src = tuple(np.stack([fr[i] for fr in frames]) for i in range(3))
+    if keyframes == "mask":
+        keyframes = np.isin(np.arange(f), [0, 5, 6, 8])
+    one_run = pfv_torch.encode_video(*src, FPS, 3, keyframes, device="cpu")
+    nb = geometry(W, H).nb
+    monkeypatch.setattr(tencoding, "COMPACT_LIMIT", 3 * nb * 256 + 1)
+    assert tencoding.compact_runs(f, nb) == [(0, 3), (3, 6), (6, 9), (9, 10)]
+    got = pfv_torch.encode_video(*src, FPS, 3, keyframes, device="cpu")
+    assert got == one_run
+    assert got == jax_encode_video(*src, framerate=FPS, quality=3, keyframes=keyframes)
+
+
+@pytest.mark.parametrize("f,w,h,limit,want", [
+    (192, 3840, 2160, None, 2),   # 4K: 172 frames a run, then 20
+    (128, 1920, 1080, None, 1),   # 1080p: one run
+    (10, 96, 64, 3, 4),
+    (7, 96, 64, 1, 7),
+    (5, 96, 64, 0, 5),            # a frame past the limit still makes a run
+])
+def test_compact_runs_cover_every_frame_once_in_order_under_the_limit(
+        monkeypatch, f, w, h, limit, want):
+    nb = geometry(w, h).nb
+    if limit is not None:
+        monkeypatch.setattr(tencoding, "COMPACT_LIMIT", limit * nb * 256 + 1)
+    runs = tencoding.compact_runs(f, nb)
+    assert len(runs) == want
+    assert [a for a, _ in runs] == [0] + [b for _, b in runs[:-1]] and runs[-1][1] == f
+    assert all(b > a for a, b in runs)
+    if limit != 0:
+        assert all((b - a) * nb * 256 < tencoding.COMPACT_LIMIT for a, b in runs)
 
 
 def test_stats_match_jax_encoder(clip):

@@ -19,7 +19,8 @@ import torch
 
 import pfv_torch
 from pfv_torch import dataloader as tdl
-from pfv_torch import synth
+from pfv_torch import encoding, synth
+from pfv_torch.frame import geometry
 from pfv_torch.utils import profiling
 from pfv_torch.utils.profiling import StageTimer, counters, device_trace, span, totals
 
@@ -124,6 +125,27 @@ def test_encode_video_codes_each_frame_in_an_entropy_span_inside_the_mux(tmp_pat
         assert spans["pfv.encode." + name][0] <= timer.totals[stage]
     assert added["encode.h2d_bytes"] == sum(p.nbytes for p in source)
     assert 0 < added["encode.payload_bytes"] < len(out)
+
+
+@pytest.mark.parametrize("frames_a_run,runs", [(None, 1), (2, 3)])
+def test_encode_video_compacts_each_run_in_a_span_and_counts_the_runs(
+        tmp_path, monkeypatch, source, frames_a_run, runs):
+    nb = geometry(64, 48).nb
+    want = pfv_torch.encode_video(*source, 30, 3, 3, device="cpu")
+    if frames_a_run is not None:
+        monkeypatch.setattr(encoding, "COMPACT_LIMIT", frames_a_run * nb * 256 + 1)
+    out, events, spans, added = traced(tmp_path, lambda: pfv_torch.encode_video(
+        *source, 30, 3, 3, device="cpu"))
+    assert out == want
+    (compact,) = named(events, "pfv.encode.compact")
+    each = named(events, "pfv.encode.compact_run")
+    assert len(each) == spans["pfv.encode.compact_run"][1] == runs
+    assert all(inside(e, compact) for e in each)
+    assert added["encode.coeff_bytes"] == FRAMES * nb * 512
+    assert added["encode.compact_runs"] == runs
+    # counted, as 0 where the device is not a CUDA one
+    assert "encode.live_peak_bytes" in counters()
+    assert added.get("encode.live_peak_bytes", 0) == 0
 
 
 def test_native_demux_counts_the_stream_bytes_and_cpu_seconds(tmp_path, units_stream):
