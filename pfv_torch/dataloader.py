@@ -10,10 +10,10 @@ Counterpart of pfv_tpu/dataloader.py. A stream takes one of four routes
            bytes -> C++ pstep demux (host) -> H2D -> densify_pstep (a device
            scatter-add into (G*L, 64, row_span) coefficients) -> K4, G GOPs
            side by side, one launch per step: L launches
-  "dense"  the other wide streams: the container cut into chunks of whole
-           frames, each demuxed on its own (pstep) and uploaded; then chunk
-           by chunk densify_pstep and K3, one launch per frame, each chunk
-           from the last canvas of the one before it
+  "dense"  the other wide streams: .pfv bytes -> C++ pstep demux (host),
+           in chunks of whole frames, all in one native call -> H2D; then
+           chunk by chunk densify_pstep and K3, one launch per frame, each
+           chunk from the last canvas of the one before it
   "frames" decode_frames: the streaming decoder's frame step (one launch
            per frame for Y, U and V), only for a geometry whose row of
            dense coefficients does not fit the pstep demux (`dense_gate`)
@@ -38,8 +38,7 @@ import numpy as np
 import torch
 
 from pfv_torch import runtime
-from pfv_torch.dec import (FrameDecoder, frame_packets, keyframe_runs, keyframes_of,
-                           makes_frame, scan_packets)
+from pfv_torch.dec import FrameDecoder, frame_packets, keyframe_runs, keyframes_of, scan_packets
 from pfv_torch.frame import Geometry, geometry, initial_canvas, slice_yuv
 from pfv_torch.kernels.dense_step import MAX_ROW_SPAN, seq_frames_dense, step_gops
 from pfv_torch.kernels.rgba import canvas_rgba
@@ -71,13 +70,19 @@ def tile_tables(g: Geometry):
     return stripe, lane, r_of_zz, g.gch
 
 
+def pstep_row_span(g: Geometry) -> int:
+    """The length of a row of the dense coefficients: gch*2*scp."""
+    return g.gch * lanes_per_stripe(g.cw)
+
+
 def pstep_tables(g: Geometry):
     """(off_of_b, r_of_zz, row_span) for the pstep demux: each stream
     block's base stripe*2*scp + 4*gc in a row of the dense coefficients,
-    the row-major row of each zigzag slot, and row_span = gch*2*scp."""
-    stripe, lane, r_of_zz, gch = tile_tables(g)
+    the row-major row of each zigzag slot, and `pstep_row_span`. (The
+    native pstep context builds the same tables from the frame size.)"""
+    stripe, lane, r_of_zz, _ = tile_tables(g)
     rs = lanes_per_stripe(g.cw)
-    return (stripe * rs + lane).astype(np.int32), r_of_zz, gch * rs
+    return (stripe * rs + lane).astype(np.int32), r_of_zz, pstep_row_span(g)
 
 
 def stream_gate(qidx, n_qtables: int) -> None:
@@ -101,7 +106,7 @@ def dense_gate(g: Geometry):
     """The one gate of the dense routes (K3, K4), a geometry's: "row_span <
     2^24" when a row of the dense coefficients does not fit the pstep
     demux's 24-bit offsets (32768x32768 fails it), else None."""
-    if pstep_tables(g)[2] >= MAX_ROW_SPAN:
+    if pstep_row_span(g) >= MAX_ROW_SPAN:
         return "row_span < 2^24"
     return None
 
@@ -111,7 +116,7 @@ def dense_chunk_frames(g: Geometry) -> int:
     the one past its last frame included, fit the demux's int32
     (MAX_POSITIONS) and CHUNK_POSITIONS. At least 1 for a geometry that
     passes `dense_gate` (64*row_span < 2^30)."""
-    span = 64 * pstep_tables(g)[2]
+    span = 64 * pstep_row_span(g)
     return min((MAX_POSITIONS - 1) // span, CHUNK_POSITIONS // span)
 
 
@@ -163,18 +168,6 @@ def _frame_meta(meta: np.ndarray, nb: int):
     return meta[f * nb:f * nb + f], meta[f * nb + f:].reshape(f, 3)
 
 
-def frame_chunks(data: bytes, spans, frames: int, cap: int) -> list[bytes]:
-    """The stream cut before frames cap, 2*cap, ... into streams of their
-    own (`keyframe_runs`, one copy per run): `spans` and `frames` are
-    `scan_packets`' spans and the frames they make; a stream of at most
-    `cap` frames is its own one chunk, not copied. A run may open with a
-    P-packet; a drop frame or an unknown packet stays with the run it lies
-    in."""
-    if not spans or frames <= cap:
-        return [data]
-    return list(keyframe_runs(data, spans, list(range(0, max(frames, 1), cap))))
-
-
 def choose_route(data: bytes, num_threads: int = 0) -> Route:
     """Pick the route by the stream's geometry (and, above width 4096, its
     keyframe pattern), then run the route's demux. Raises ValueError for a
@@ -192,18 +185,15 @@ def choose_route(data: bytes, num_threads: int = 0) -> Route:
         gate = dense_gate(g)
         if gate is not None:
             return Route(g, "frames", gate, None)
-        _, spans = scan_packets(data)
-        ftype = np.array([t for a, b, t in spans if makes_frame(a, b, t)], np.uint8)
         cap = dense_chunk_frames(g)
+        hosts = demux_host_packed(data, num_threads, chunk_frames=cap)
+        metas = [_frame_meta(host[4], g.nb) for host in hosts]
+        for _, qidx in metas:
+            stream_gate(qidx, nq)
+        ftype = np.concatenate([t for t, _ in metas])
         gops = gop_shape(ftype, g.nb)
-        if gops is not None and gops[0] * gops[1] <= cap:
-            host = demux_host_packed(data, num_threads)
-            stream_gate(_frame_meta(host[4], g.nb)[1], nq)
-            return Route(g, "gops", None, host, gops)
-        hosts = [demux_host_packed(c, num_threads)
-                 for c in frame_chunks(data, spans, ftype.size, cap)]
-        for host in hosts:
-            stream_gate(_frame_meta(host[4], g.nb)[1], nq)
+        if gops is not None and gops[0] * gops[1] <= cap:  # then one chunk
+            return Route(g, "gops", None, hosts[0], gops)
         return Route(g, "dense", None, hosts, leading_p=bool(ftype.size and ftype[0] == 2))
 
 
@@ -219,20 +209,23 @@ def demux_host(data: bytes, num_threads: int = 0):
     return route.host
 
 
-def demux_host_packed(data: bytes, num_threads: int = 0):
+def demux_host_packed(data: bytes, num_threads: int = 0, chunk_frames: int | None = None):
     """Parse and entropy-decode `data` on the host into the pstep layout:
     (info, geometry, deltas (n,) u16, vals (n,) i8, meta (F*nb + 4F,) u16).
     The inclusive cumsum of the deltas gives each unit's position in the
     dense (F, 64, row_span) coefficients, the last unit parked at
-    F*64*row_span; `densify_pstep` scatter-adds the vals there. Raises
-    ValueError where the positions do not fit int32 (the dense route cuts a
-    stream into chunks of at most `dense_chunk_frames` frames first) or a
-    row does not fit 24 bits (`dense_gate`)."""
-    hdr, _ = runtime.parse_header(data)
-    g = geometry(hdr["width"], hdr["height"])
-    info, deltas, vals, bh, ftype, qidx = runtime.demux_file_sparse_packed(
-        data, num_threads, pstep_tables=pstep_tables(g))
-    return info, g, deltas, vals, _pack_meta(bh, ftype, qidx)
+    F*64*row_span; `densify_pstep` scatter-adds the vals there. With
+    `chunk_frames`, the stream is cut into chunks of that many frames (the
+    last may hold fewer) and the result is a list of such tuples, one per
+    chunk, each as if its chunk were a stream of its own (the dense
+    route's; the same native call decodes every chunk). Raises ValueError
+    where a chunk's positions do not fit int32 (the dense route's chunks
+    hold at most `dense_chunk_frames` frames) or a row does not fit 24 bits
+    (`dense_gate`)."""
+    chunks = runtime.demux_file_sparse_pstep(data, chunk_frames or 0, num_threads)
+    g = geometry(chunks[0][0]["width"], chunks[0][0]["height"])
+    hosts = [(info, g, *rest) for info, *rest in chunks]
+    return hosts if chunk_frames else hosts[0]
 
 
 def unpack_meta(meta: torch.Tensor, nb: int):
@@ -360,7 +353,7 @@ def _densified(g: Geometry, pstep, frames: int = 0):
     (max(F, frames), 64, row_span) i16, mvx, mvy, hc, ftype, qmul)."""
     d, v, *tables = pstep
     with span("decode.densify"):
-        coeffs = densify_pstep(d, v, max(tables[3].shape[0], frames), pstep_tables(g)[2])
+        coeffs = densify_pstep(d, v, max(tables[3].shape[0], frames), pstep_row_span(g))
     return (coeffs, *tables)
 
 

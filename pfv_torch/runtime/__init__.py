@@ -3,15 +3,17 @@
 `native/pfv_bitstream.cpp` is the PFV bitstream layer (Huffman/RLE payload
 coding, the container, every demux form, the scalar reference decoder),
 kept byte for byte equal to the JAX package's copy. The port's own source,
-`native/pfv_tile_demux.cpp`, includes that file and adds a persistent
-context for the tile demux (K1's route): workers that sleep between calls
-and unit buffers kept from one call to the next, sized by what the streams
-really produced. This module binds the part of the library the port uses
-through ctypes with numpy-array views.
+`native/pfv_tile_demux.cpp`, includes that file and adds persistent
+contexts for the tile demux (K1's route) and the pstep demux (the dense and
+GOP routes): workers that sleep between calls and unit buffers kept from
+one call to the next, sized by what the streams really produced. This
+module binds the part of the library the port uses through ctypes with
+numpy-array views.
 
-The tile demux holds memory after a call: per context (one per concurrent
-caller and `num_threads`), the high-water mark of the calls it served.
-`release_demux_memory()` frees the idle contexts' workers and buffers.
+Both demuxes hold memory after a call: per context (one per concurrent
+caller, kind and `num_threads`), the high-water mark of the calls it
+served. `release_demux_memory()` frees the idle contexts' workers and
+buffers.
 
 The library is compiled with g++ at first use into `pfv_torch/build/`
 (which git ignores), under a name keyed by the sources, the flags and the
@@ -86,6 +88,8 @@ def get_lib() -> ctypes.CDLL:
         p_u16 = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
         p_u32 = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
         p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        p_u64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
 
         lib.pfv_encode_iframe_payload.restype = i64
         lib.pfv_encode_iframe_payload.argtypes = [p_i16, i64, p_u8, p_u8, i64]
@@ -131,6 +135,16 @@ def get_lib() -> ctypes.CDLL:
             p_i32, p_i32, p_i32, i64, ctypes.POINTER(i64)]
         lib.pfv_tile_demux_splice.restype = i64
         lib.pfv_tile_demux_splice.argtypes = [vp, p_u32, i64, p_i32]
+        lib.pfv_pstep_demux_new.restype = vp
+        lib.pfv_pstep_demux_new.argtypes = [ctypes.c_int32]
+        lib.pfv_pstep_demux_free.restype = None
+        lib.pfv_pstep_demux_free.argtypes = [vp]
+        lib.pfv_pstep_demux_decode.restype = i64
+        lib.pfv_pstep_demux_decode.argtypes = [
+            vp, p_u8, i64, i64, i64, i64, i64, i64, p_u64, p_i64, p_i16,
+            ctypes.POINTER(i64)]
+        lib.pfv_pstep_demux_splice.restype = i64
+        lib.pfv_pstep_demux_splice.argtypes = [vp, p_u64, p_u64, p_i64, i64]
         _lib = lib
         return _lib
 
@@ -404,13 +418,80 @@ def demux_file_sparse_packed(data: bytes, num_threads: int = 0,
     return info, deltas[:padded], vals[:padded], bh, ftype, qidx
 
 
-class _Contexts:
-    """The idle native tile-demux contexts, by `num_threads`. A call takes
-    the idle one returned last or makes one, so concurrent callers (the
-    loader's worker, a stream batch, the streaming Decoder) each hold their
-    own, and one caller's calls find the buffers it grew."""
+def _addresses(arrays) -> np.ndarray:
+    """The data addresses of numpy arrays, for a native entry that takes
+    one array per chunk (the caller keeps the arrays alive)."""
+    return np.array([a.ctypes.data for a in arrays], dtype=np.uint64)
 
-    def __init__(self):
+
+def demux_file_sparse_pstep(data: bytes, chunk_frames: int = 0, num_threads: int = 0):
+    """The pstep demux of `data` in chunks of `chunk_frames` frames (0: one
+    chunk of every frame), in the step kernels' layout for the stream's own
+    frame size (`dataloader.pstep_tables`): a list with one (info, deltas
+    (n,) u16, vals (n,) i8, meta (F*B + 4F,) u16) per chunk of F frames,
+    each chunk's arrays its own and of exactly its size. meta packs [block
+    headers (F, B) | ftype (F,) | qidx (F, 3)]; each field and the units
+    are, byte for byte, what `demux_file_sparse_packed(chunk,
+    pstep_tables=...)` gives for a stream of that chunk's frames alone, and
+    so is info. Raises ValueError as that function does, a chunk's
+    positions in place of the stream's.
+
+    The work runs in a native context kept between calls, in one run of its
+    workers for the whole stream (num_threads of them, 0 for one per
+    hardware thread): its per-frame buffers at the high-water mark of the
+    calls it served, and the tables of the last frame size
+    (`release_demux_memory` frees them). While a profiler session records,
+    counts `decode.pstep_grow_bytes`, the buffer bytes a call added, and
+    `decode.pstep_calls_reused`, the calls that added none."""
+    lib = get_lib()
+    info, off = parse_header(data)
+    _, _, yb, cb = _plane_dims(info)
+    total_blocks = yb + 2 * cb
+    buf = np.frombuffer(data, dtype=np.uint8)
+    nf = lib.pfv_count_frames(buf, len(data), off)
+    if nf < 0:
+        raise ValueError(f"corrupt packet stream (code {nf})")
+    per = chunk_frames if chunk_frames > 0 else max(nf, 1)
+    frames = [min(per, nf - a) for a in range(0, nf, per)] or [0]
+    metas = [np.empty(f * (total_blocks + 4), dtype=np.uint16) for f in frames]
+    units = np.zeros(len(frames), dtype=np.int64)
+    mv_absmax = np.zeros(len(frames), dtype=np.int16)
+    grown = ctypes.c_int64(0)
+    with _pstep_contexts.take(lib, num_threads) as ctx, _native_demux(data):
+        n = lib.pfv_pstep_demux_decode(
+            ctx, buf, len(data), off, info["width"], info["height"], nf, per,
+            _addresses(metas), units, mv_absmax, ctypes.byref(grown))
+        if n >= 0:
+            deltas = [np.empty(u, dtype=np.uint16) for u in units]
+            vals = [np.empty(u, dtype=np.int8) for u in units]
+            rc = lib.pfv_pstep_demux_splice(ctx, _addresses(deltas), _addresses(vals),
+                                            units, len(frames))
+            if rc < 0:
+                n = rc
+        count("decode.pstep_grow_bytes", grown.value)
+        count("decode.pstep_calls_reused", int(grown.value == 0))
+    if n == -8:
+        raise ValueError("corrupt P-frame payload: motion vector out of bounds")
+    if n == -9:
+        raise ValueError("video too large for sparse flat indexing; chunk it")
+    if n == -10:
+        raise ValueError("geometry too wide for pstep unit layout")
+    if n < 0:
+        raise ValueError(f"sparse demux failed (code {n})")
+    info["yb"], info["cb"], info["total_blocks"] = yb, cb, total_blocks
+    return [(dict(info, mv_absmax=int(m), unit_layout="pstep"), d, v, meta)
+            for m, d, v, meta in zip(mv_absmax, deltas, vals, metas)]
+
+
+class _Contexts:
+    """The idle native demux contexts of one kind ("tile" or "pstep"), by
+    `num_threads`. A call takes the idle one returned last or makes one, so
+    concurrent callers (the loader's worker, a stream batch, the streaming
+    Decoder) each hold their own, and one caller's calls find the buffers
+    it grew."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
         self.lock = threading.Lock()
         self.idle: list[tuple[int, int]] = []
 
@@ -421,9 +502,9 @@ class _Contexts:
                       if self.idle[i][0] == num_threads), None)
             ctx = None if i is None else self.idle.pop(i)[1]
         if ctx is None:
-            ctx = lib.pfv_tile_demux_new(num_threads)
+            ctx = getattr(lib, f"pfv_{self.kind}_demux_new")(num_threads)
             if not ctx:
-                raise MemoryError("no memory for a tile demux context")
+                raise MemoryError(f"no memory for a {self.kind} demux context")
         try:
             yield ctx
         finally:
@@ -434,7 +515,7 @@ class _Contexts:
         with self.lock:
             idle, self.idle = self.idle, []
         for _, ctx in idle:
-            lib.pfv_tile_demux_free(ctx)
+            getattr(lib, f"pfv_{self.kind}_demux_free")(ctx)
 
     def after_fork(self) -> None:
         # the lock may have been held by a thread the child does not have;
@@ -442,17 +523,20 @@ class _Contexts:
         self.lock = threading.Lock()
 
 
-_contexts = _Contexts()
+_contexts = _Contexts("tile")
+_pstep_contexts = _Contexts("pstep")
 os.register_at_fork(after_in_child=_contexts.after_fork)
+os.register_at_fork(after_in_child=_pstep_contexts.after_fork)
 
 
 def release_demux_memory() -> None:
-    """Free the workers and unit buffers that the tile demux keeps between
-    calls (each idle context holds the high-water mark of the calls it
-    served). A context in use keeps its memory until it is next released.
-    The next call makes a new context."""
+    """Free the workers and buffers that the tile and pstep demuxes keep
+    between calls (each idle context holds the high-water mark of the calls
+    it served). A context in use keeps its memory until it is next
+    released. The next call makes a new context."""
     if _lib is not None:
         _contexts.release(_lib)
+        _pstep_contexts.release(_lib)
 
 
 def demux_file_sparse_tiles(data: bytes, tile_tables, chunk: int = 128,
@@ -546,7 +630,7 @@ def ref_decode(data: bytes, emit: bool = True, max_frames: int = 1 << 30):
 
 
 __all__ = ["count_frames", "decode_iframe_payload", "decode_pframe_payload",
-           "demux_file_sparse_packed", "demux_file_sparse_tiles",
+           "demux_file_sparse_packed", "demux_file_sparse_pstep", "demux_file_sparse_tiles",
            "encode_iframe_payload", "encode_iframe_payload_sparse",
            "encode_pframe_payload", "encode_pframe_payload_sparse",
            "get_lib", "parse_header", "ref_decode", "release_demux_memory",
