@@ -1,33 +1,31 @@
 """Whole-clip decode of a .pfv stream into device memory (PyTorch/CUDA).
 
-Counterpart of pfv_tpu/dataloader.py. A stream takes one of four routes
+Counterpart of pfv_tpu/dataloader.py. A stream takes one of three routes
 (`choose_route`), by its geometry:
 
   "units"  widths up to 4096: .pfv bytes -> C++ tile demux (host) -> H2D
            -> per-frame tables -> K1 frame step, one launch per frame ->
            (F, chh, cw) canvases
-  "gops"   wider, small frames with a uniform keyframe interval L: .pfv
-           bytes -> C++ pstep demux (host) -> H2D -> densify_pstep (a device
-           scatter-add into (G*L, 64, row_span) coefficients) -> K4, G GOPs
-           side by side, one launch per step: L launches
-  "dense"  the other wide streams: .pfv bytes -> C++ pstep demux (host),
-           in chunks of whole frames, all in one native call -> H2D; then
-           chunk by chunk densify_pstep and K3, one launch per frame, each
-           chunk from the last canvas of the one before it
+  "dense"  wider: .pfv bytes -> C++ pstep demux (host), in chunks of whole
+           frames, all in one native call -> H2D; then chunk by chunk
+           densify_pstep and K3, one launch per frame, each chunk from the
+           last canvas of the one before it
   "frames" decode_frames: the streaming decoder's frame step (one launch
            per frame for Y, U and V), only for a geometry whose row of
            dense coefficients does not fit the pstep demux (`dense_gate`)
 
-then YUV views of the canvases | K2 -> (F, H, W) uint32 RGBA. K1, K3 and K4
-take any frame types and any q-table index per frame and plane: every frame
-dequantizes with its own multipliers, and a stream whose first frame is a
-P-frame predicts it from the reference framebuffer (Y 0, U and V 128). The
-canvas fuses the three planes: Y at rows [0, ly0), U and V side by side
-below it, V starting at column lcw. Every public entry point takes an
-explicit `device` ("cuda" by default) and leaves its result there; a CPU
-device runs the kernels' plain PyTorch versions. The demux, the upload, the
-tables, densify, the frame step and K2 each open a span `pfv.decode.*` of
-`utils.profiling`, on only while a profiler session records.
+then YUV views of the canvases | K2 -> (F, H, W) uint32 RGBA. K4, the dense
+frame step batched over GOPs, runs behind `decode_packed_gops` alone. K1,
+K3 and K4 take any frame types and any q-table index per frame and plane:
+every frame dequantizes with its own multipliers, and a stream whose first
+frame is a P-frame predicts it from the reference framebuffer (Y 0, U and
+V 128). The canvas fuses the three planes: Y at rows [0, ly0), U and V
+side by side below it, V starting at column lcw. Every public entry point
+takes an explicit `device` ("cuda" by default) and leaves its result there;
+a CPU device runs the kernels' plain PyTorch versions. The demux, the
+upload, the tables, densify, the frame step and K2 each open a span
+`pfv.decode.*` of `utils.profiling`, on only while a profiler session
+records.
 """
 
 from __future__ import annotations
@@ -47,7 +45,6 @@ from pfv_torch.ops.quant import DCT_SCALE_FACTOR, INV_ZIGZAG_TABLE
 from pfv_torch.utils.profiling import count, span
 
 UNITS_CHUNK = 128  # units per chunk of the tile demux
-GOP_MAX_BLOCKS = 4096  # the GOP route takes small frames only (SD, not 1080p)
 MAX_POSITIONS = 1 << 31  # the pstep demux's flat unit positions are int32
 # The most dense coefficient positions of one chunk: 24 frames of 8K UHD
 # (64*row_span = 53,084,160 each). The densify holds 6 bytes per position
@@ -103,16 +100,16 @@ def failed_gate(g: Geometry):
 
 
 def dense_gate(g: Geometry):
-    """The one gate of the dense routes (K3, K4), a geometry's: "row_span <
-    2^24" when a row of the dense coefficients does not fit the pstep
-    demux's 24-bit offsets (32768x32768 fails it), else None."""
+    """The one gate of the dense route (K3) and of K4, a geometry's:
+    "row_span < 2^24" when a row of the dense coefficients does not fit the
+    pstep demux's 24-bit offsets (32768x32768 fails it), else None."""
     if pstep_row_span(g) >= MAX_ROW_SPAN:
         return "row_span < 2^24"
     return None
 
 
 def dense_chunk_frames(g: Geometry) -> int:
-    """The most frames one chunk of the dense routes holds: its positions,
+    """The most frames one chunk of the dense route holds: its positions,
     the one past its last frame included, fit the demux's int32
     (MAX_POSITIONS) and CHUNK_POSITIONS. At least 1 for a geometry that
     passes `dense_gate` (64*row_span < 2^30)."""
@@ -120,39 +117,18 @@ def dense_chunk_frames(g: Geometry) -> int:
     return min((MAX_POSITIONS - 1) // span, CHUNK_POSITIONS // span)
 
 
-def gop_shape(ftype, nb: int):
-    """(G, L) when the stream has a uniform keyframe interval L (I-frames
-    exactly at frames 0, L, 2L, ...; at least two GOPs) and frames of at
-    most GOP_MAX_BLOCKS blocks, else None. Frame-major data is then (G, L)
-    GOPs; the last is padded to L frames."""
-    ftype = np.asarray(ftype).reshape(-1)
-    f = ftype.shape[0]
-    starts = np.flatnonzero(ftype == 1)
-    if starts.size < 2 or starts[0] != 0:
-        return None
-    l = int(starts[1])
-    if not np.array_equal(starts, np.arange(0, f, l)) or nb > GOP_MAX_BLOCKS:
-        return None
-    g = -(-f // l)
-    if g * l * nb * 256 >= MAX_POSITIONS:
-        return None
-    return g, l
-
-
 class Route(NamedTuple):
-    """How a stream decodes. kind "units": `host` holds `demux_host`'s
-    output (K1); "gops": `host` holds `demux_host_packed`'s output and
-    `gops` the (G, L) of the GOP route (K4); "dense": `host` holds a list,
+    """How a stream decodes, and what its `host` holds until the upload:
+    kind "units": `demux_host`'s output (K1); "dense": a list,
     `demux_host_packed`'s output for each chunk of the stream (K3);
-    "frames": the per-frame path, `gate` naming the gate the stream failed.
-    `leading_p`: the first frame is a P-frame, predicted from the reference
-    framebuffer (`frame.initial_canvas`)."""
+    "frames": the stream's bytes (the per-frame path), `gate` naming the
+    gate the stream failed. `leading_p`: the first frame is a P-frame,
+    predicted from the reference framebuffer (`frame.initial_canvas`)."""
 
     g: Geometry
     kind: str
     gate: str | None
-    host: tuple | list | None
-    gops: tuple | None = None
+    host: tuple | list | bytes | None
     leading_p: bool = False
 
 
@@ -169,9 +145,8 @@ def _frame_meta(meta: np.ndarray, nb: int):
 
 
 def choose_route(data: bytes, num_threads: int = 0) -> Route:
-    """Pick the route by the stream's geometry (and, above width 4096, its
-    keyframe pattern), then run the route's demux. Raises ValueError for a
-    q-table index the header does not have."""
+    """Pick the route by the stream's geometry, then run the route's demux.
+    Raises ValueError for a q-table index the header does not have."""
     with span("decode.demux"):
         hdr, _ = runtime.parse_header(data)
         g = geometry(hdr["width"], hdr["height"])
@@ -184,17 +159,13 @@ def choose_route(data: bytes, num_threads: int = 0) -> Route:
                          leading_p=bool(ftype.size and ftype[0] == 2))
         gate = dense_gate(g)
         if gate is not None:
-            return Route(g, "frames", gate, None)
-        cap = dense_chunk_frames(g)
-        hosts = demux_host_packed(data, num_threads, chunk_frames=cap)
+            return Route(g, "frames", gate, data)
+        hosts = demux_host_packed(data, num_threads, chunk_frames=dense_chunk_frames(g))
         metas = [_frame_meta(host[4], g.nb) for host in hosts]
         for _, qidx in metas:
             stream_gate(qidx, nq)
-        ftype = np.concatenate([t for t, _ in metas])
-        gops = gop_shape(ftype, g.nb)
-        if gops is not None and gops[0] * gops[1] <= cap:  # then one chunk
-            return Route(g, "gops", None, hosts[0], gops)
-        return Route(g, "dense", None, hosts, leading_p=bool(ftype.size and ftype[0] == 2))
+        first = metas[0][0]
+        return Route(g, "dense", None, hosts, leading_p=bool(first.size and first[0] == 2))
 
 
 def demux_host(data: bytes, num_threads: int = 0):
@@ -287,12 +258,6 @@ def _meta_tables(g: Geometry, meta_t, qtables_t):
     with span("decode.tables"):
         mvx, mvy, hc, ftype, qidx = unpack_meta(meta_t.to(torch.int32) & 0xFFFF, g.nb)
         return mvx, mvy, hc, ftype.contiguous(), frame_multipliers(qtables_t, qidx)
-
-
-def upload_meta(info, g: Geometry, meta, dev):
-    """The u16 meta words -> copied to device `dev`, unpacked: (mvx, mvy,
-    hc (F, nb), ftype (F,) int32, qmul (F, 3, 64) int32)."""
-    return _meta_tables(g, *pageable_copy(dev)([meta.view(np.int16), info["qtables"]]))
 
 
 def upload(host, device="cuda", h2d=None):
@@ -422,9 +387,9 @@ def _gop_inputs(g: Geometry, pstep, n_gops: int, gop_len: int):
 
 
 def _gops_canvases(g: Geometry, f: int, per_step, qmul):
-    """The "gops" route: one call of K4 (L launches), step l decoding frame
-    l of every GOP from frame l-1 of the same GOP; the canvases un-stacked
-    and cut to F."""
+    """`decode_packed_gops`' step: one call of K4 (L launches), step l
+    decoding frame l of every GOP from frame l-1 of the same GOP; the
+    canvases un-stacked and cut to F."""
     out = step_gops(*per_step, qmul, g.chh, g.cw, g.gly, g.guw)
     return out.view(-1, g.chh, g.cw)[:f]
 
@@ -453,31 +418,27 @@ def decode_frames(data: bytes, device="cuda"):
 def upload_route(route: Route, device="cuda", h2d=None):
     """The first half of a decode: the route's demux output copied to
     `device` (`h2d` as `upload`'s) and its tables unpacked there, on the
-    current stream. -> the route's device tensors: `step_frames`' inputs
-    ("units"), `upload_pstep`'s tensors ("gops"), a list of them, one per
-    chunk ("dense"), None ("frames": that route uploads frame by frame as it
+    current stream. -> what `run_route` takes: `step_frames`' inputs
+    ("units"), a list of `upload_pstep`'s tensors, one per chunk ("dense"),
+    the stream's bytes ("frames": that route uploads frame by frame as it
     decodes)."""
     with span("decode.upload"):
         if route.kind == "units":
             return upload(route.host, device, h2d)[1]
-        if route.kind == "gops":
-            return upload_pstep(route.host, device, h2d)[1]
         if route.kind == "dense":
             return upload_chunks(route.host, device, h2d)[1]
-        return None
+        return route.host
 
 
-def run_route(route: Route, uploaded, data: bytes, device="cuda"):
+def run_route(route: Route, uploaded, device="cuda"):
     """The second half: the route's frame step over `upload_route`'s
-    tensors, on the current stream -> (F, chh, cw) u8 canvases. `route.host`
-    is not read; `data`, the stream's bytes, only by route "frames"."""
+    result, on the current stream -> (F, chh, cw) u8 canvases. `route.host`
+    is not read; `device` only by route "frames" (the others decode where
+    their tensors are)."""
     g = route.g
     with span("decode.step"):
-        if route.kind == "gops":
-            return _gops_canvases(g, uploaded[5].shape[0],
-                                  *_gop_inputs(g, uploaded, *route.gops))
         if route.kind == "frames":
-            return decode_frames(data, device)[1]
+            return decode_frames(uploaded, device)[1]
         dev = (uploaded[0] if route.kind == "units" else uploaded[0][0]).device
         prev = initial_canvas(g, dev) if route.leading_p else None
         if route.kind == "units":
@@ -489,7 +450,7 @@ def decode_canvases(data: bytes, device="cuda", num_threads: int = 0):
     """Decode a whole stream -> (geometry, (F, chh, cw) u8 canvases) by the
     route `choose_route` picks."""
     route = choose_route(data, num_threads)
-    return route.g, run_route(route, upload_route(route, device), data, device)
+    return route.g, run_route(route, upload_route(route, device), device)
 
 
 def _output(g: Geometry, canvases, want: str):

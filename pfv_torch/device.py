@@ -7,7 +7,10 @@ blocks land in the output plane in raster order, P blocks from the window
 of the reference plane. The output may be a strided view of a fused canvas;
 it never overlaps the reference. The per-plane encode steps encode every
 macroblock of a plane (K6's per-plane entry, after the motion search for P)
-and reconstruct it through the decode step.
+and reconstruct it through the decode step. The block entries below them
+(`encode_blocks_best`, `decode_blocks_best`, `encode_plane_delta`,
+`decode_delta_blocks`) run the kernels on a CUDA tensor and their plain
+versions (`ops/`) on a CPU one.
 
 The encoders work a frame at a time, through a `FrameEncoder`: the
 reconstruction lives in two fused canvases that swap, and a frame costs, for
@@ -26,12 +29,13 @@ import numpy as np
 import torch
 
 from pfv_torch.frame import Geometry, canvas_layout, canvas_planes
-from pfv_torch.kernels.fdct import FrameEncode
+from pfv_torch.kernels.fdct import FrameEncode, fdct_blocks
 from pfv_torch.kernels.frame_step import FrameStep, plane_layout
+from pfv_torch.kernels.idct import decode_blocks
+from pfv_torch.kernels.mc import mc_reconstruct
 from pfv_torch.kernels.motion import MotionSearch
 from pfv_torch.ops.blocks import block_origins, plane_to_blocks
-from pfv_torch.ops.iframe import encode_blocks_best
-from pfv_torch.ops.pframe import encode_plane_delta
+from pfv_torch.ops.motion import motion_search
 
 QT_KEYS = ("intra_l", "intra_c", "inter_l", "inter_c")  # the container's order
 INTRA_Q, INTER_Q = (0, 1, 1), (2, 3, 3)  # q-table indices of (Y, U, V)
@@ -49,6 +53,52 @@ def plane_step(q_table, h: int, w: int, device) -> FrameStep:
     if isinstance(q_table, torch.Tensor):
         q_table = q_table.cpu().numpy()
     return FrameStep(np.asarray(q_table).reshape(1, 64), plane_layout(h, w), device)
+
+
+def encode_blocks_best(blocks: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
+    """`ops.iframe.encode_blocks` through kernel K6 (kernels/fdct.py): the
+    kernel on a CUDA tensor, the plain version on a CPU one."""
+    return fdct_blocks(blocks, q_table)
+
+
+def decode_blocks_best(coeffs: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
+    """`ops.iframe.decode_blocks` through kernel K5 (kernels/idct.py): the
+    kernel on a CUDA tensor, the plain version on a CPU one."""
+    return decode_blocks(coeffs, q_table)
+
+
+def encode_plane_delta(cur_blocks: torch.Tensor, ref_plane: torch.Tensor,
+                       by: torch.Tensor, bx: torch.Tensor, q_table: torch.Tensor,
+                       min_err: np.float32):
+    """Inter-encode one plane's (N, 16, 16) u8 macroblocks against the
+    reconstructed previous plane: motion search, skip when the best SSD is
+    not above `min_err` (float32), K6's delta entry for the coefficients.
+
+    Returns (coeffs (N, 4, 64) i16, mv_x (N,) i32, mv_y (N,) i32,
+    has_coeff (N,) bool). Coefficients are computed for every block;
+    skipped blocks' are dropped when muxing.
+    """
+    mv_x, mv_y, best_err, best_win = motion_search(cur_blocks, ref_plane, by, bx)
+    has_coeff = best_err.to(torch.float32) > float(min_err)
+    return fdct_blocks(cur_blocks, q_table, best_win), mv_x, mv_y, has_coeff
+
+
+def decode_delta_blocks(coeffs, q_table, ref_plane, by, bx, mv_y, mv_x,
+                        has_coeff, out=None) -> torch.Tensor:
+    """Decode (N, 4, 64) delta coeffs through K5 + K7 into a plane.
+
+    Each block takes the window of `ref_plane` at its origin (by, bx) plus
+    its motion vector; a block with coefficients adds its decoded residual
+    (clamp(win + (res - 128) * 2)), the others pass the window through.
+    Skipped blocks carry zero coefficients, which K5 decodes to values that
+    K7 discards. Unlike the JAX function, which returns the (N, 16, 16)
+    blocks, the blocks land at their origins in the returned plane: `out`
+    if given (same shape as `ref_plane`, never overlapping it), else a new
+    one.
+    """
+    res = decode_blocks_best(coeffs, q_table)
+    return mc_reconstruct(res, ref_plane, by, bx, mv_y, mv_x, has_coeff,
+                          False, out)
 
 
 def iframe_decode_plane(coeffs, step: FrameStep, out) -> torch.Tensor:

@@ -12,11 +12,11 @@ the same stream and records an event; the consumer's stream waits on the
 event, so the copy of video i+1 runs beside the kernels of video i. Frames
 are yielded as (F, H, W, 3) uint8 tensors on the device, what
 `decode_video_rgb` returns for the same bytes; nothing comes back to the
-host. Each video takes the route its own geometry and packets give it
-(the chunks of a "dense" stream are all uploaded by the worker and stepped
-one at a time by the consumer); a stream of route "frames", which only a
-geometry too large for the dense coefficients takes, decodes in the
-consumer, frame by frame.
+host. Each video takes the route its own geometry gives it; what the
+worker's upload returns, the consumer's frame step takes (the chunks of a
+wide stream are all uploaded by the worker and stepped one at a time by the
+consumer; a geometry too large for the dense coefficients decodes in the
+consumer, frame by frame, from the stream's bytes).
 """
 
 from __future__ import annotations
@@ -74,11 +74,11 @@ class PinnedStager:
 
 
 def _tensors(uploaded):
-    """The tensors of `upload_route`'s result: a tuple of tensors, a list of
-    such tuples (one per chunk), or None."""
+    """The tensors in `upload_route`'s result, however nested in tuples and
+    lists."""
     if isinstance(uploaded, torch.Tensor):
         yield uploaded
-    elif uploaded is not None:
+    elif isinstance(uploaded, (tuple, list)):
         for t in uploaded:
             yield from _tensors(t)
 
@@ -113,9 +113,9 @@ class VideoDataLoader:
 
     def _produce(self, q: queue.Queue, stop: threading.Event) -> None:
         """The worker: each video demuxed and uploaded, then queued as
-        (route, its device tensors, the bytes a "frames" route decodes
-        from, the event behind the upload); None at the end, an exception
-        in place of the video that raised it."""
+        (route, what its upload returned, the event behind the upload);
+        None at the end, an exception in place of the video that raised
+        it."""
         dev, stage = self._device, self._stage
 
         def put(item) -> bool:
@@ -151,8 +151,7 @@ class VideoDataLoader:
                             ready = torch.cuda.Event()
                             ready.record()
                     # the demux's arrays (worst-case capacity) are not kept
-                    item = (route._replace(host=None), uploaded,
-                            f if route.kind == "frames" else None, ready)
+                    item = (route._replace(host=None), uploaded, ready)
                     if not put(item):
                         return
                 put(None)
@@ -165,7 +164,7 @@ class VideoDataLoader:
     def _decode(self, item) -> torch.Tensor:
         """The consumer's half of one video: wait for its upload on the
         current stream, then the route's frame step and K2."""
-        route, uploaded, data, ready = item
+        route, uploaded, ready = item
         if ready is not None:
             current = torch.cuda.current_stream(self._device)
             current.wait_event(ready)
@@ -174,7 +173,7 @@ class VideoDataLoader:
             for t in _tensors(uploaded):
                 t.record_stream(current)
         with self._stage("decode"):
-            return _output(route.g, run_route(route, uploaded, data, self._device), "rgb")
+            return _output(route.g, run_route(route, uploaded, self._device), "rgb")
 
     def __iter__(self) -> Iterator[torch.Tensor]:
         q: queue.Queue = queue.Queue(maxsize=self._prefetch)

@@ -14,28 +14,12 @@ from pfv_torch.ops.dct import FP_BITS, fdct2d, idct8_dim
 from pfv_torch.ops.quant import dequantize, quantize
 
 
-def encode_blocks_best(blocks: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
-    """`encode_blocks` through kernel K6 (kernels/fdct.py): the kernel on a
-    CUDA tensor, the plain version on a CPU one."""
-    from pfv_torch.kernels.fdct import fdct_blocks
-
-    return fdct_blocks(blocks, q_table)
-
-
 def encode_blocks(blocks: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
     """Intra-encode (N, 16, 16) uint8 macroblocks -> (N, 4, 64) int16 coeffs:
     per subblock (px - 128) << 8, the 2-D forward DCT, quantize."""
     sub = blocks_to_subblocks(blocks.to(torch.int32))
     m = fdct2d((sub - 128) << FP_BITS)
     return quantize(m.reshape(m.shape[0], 4, 64), q_table)
-
-
-def decode_blocks_best(coeffs: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:
-    """`decode_blocks` through kernel K5 (kernels/idct.py): the kernel on a
-    CUDA tensor, the plain version on a CPU one."""
-    from pfv_torch.kernels.idct import decode_blocks as k5
-
-    return k5(coeffs, q_table)
 
 
 def decode_blocks(coeffs: torch.Tensor, q_table: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,8 @@
 coding, the container, every demux form, the scalar reference decoder),
 kept byte for byte equal to the JAX package's copy. The port's own source,
 `native/pfv_tile_demux.cpp`, includes that file and adds persistent
-contexts for the tile demux (K1's route) and the pstep demux (the dense and
-GOP routes): workers that sleep between calls and unit buffers kept from
+contexts for the tile demux (K1's route) and the pstep demux (the dense
+route, and K4's input): workers that sleep between calls and unit buffers kept from
 one call to the next, sized by what the streams really produced. This
 module binds the part of the library the port uses through ctypes with
 numpy-array views.

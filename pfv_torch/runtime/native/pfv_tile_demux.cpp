@@ -1,6 +1,6 @@
 // The port's own demux contexts: persistent native state that keeps its
 // workers and its output buffers from one call to the next, for the tile
-// demux (K1's route) and the pstep demux (the dense and GOP routes).
+// demux (K1's route) and the pstep demux (the dense route, and K4's input).
 //
 // pfv_bitstream.cpp stays the JAX package's copy, unchanged; this file
 // includes it and reuses its entropy passes (decode_payload_tiles and its

@@ -1,7 +1,9 @@
 """Tests that need a CUDA card: each hand-written kernel against its plain
 PyTorch version on the card, the decode (whole-clip by each route, the
-streaming Decoder) against the scalar reference, and the encode on the card
-against the encode on the CPU.
+streaming Decoder, the committed corpora at full length) against the scalar
+reference, the launches of each path, the dense route's peak memory at 8K
+UHD, the encode on the card against the encode on the CPU and against the
+committed corpora's bytes, and the command-line tool on the card.
 They skip without a card. They need no JAX; where it is not installed,
 skip tests/conftest.py (which imports it):
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import io
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -34,12 +37,19 @@ from pfv_torch.kernels.motion import MAX_STRIDE, MotionSearch, motion_search_pla
 from pfv_torch.kernels.rgba import canvas_rgba, canvas_rgba_plain
 from pfv_torch.kernels.step import step_frames, step_frames_plain
 from pfv_torch.ops.blocks import block_origins
+from pfv_torch.ops.color import double_plane, yuv_to_rgb
 
 pytestmark = pytest.mark.cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIPS = [".bench_cache/corpus_512x384_q2_161f.pfv",
-         "tests/data/clip_136x90_q3_8f.pfv"]
+         "tests/data/clip_136x90_q3_8f.pfv",
+         ".bench_cache/corpus_1920x1080_q2_120f.pfv",
+         ".bench_cache/corpus_1920x1080_q2_120f_pan.pfv"]
+# the committed corpora's sources (width, height, frames, generator), which
+# the JAX package's encoder wrote at quality 2, 30 fps, a keyframe every 60
+CORPORA = {CLIPS[0]: (512, 384, 161, "std"), CLIPS[2]: (1920, 1080, 120, "std"),
+           CLIPS[3]: (1920, 1080, 120, "pan")}
 
 
 @pytest.fixture
@@ -49,17 +59,35 @@ def cuda():
     return torch.device("cuda")
 
 
+def _decode_counters():
+    return (step_frames, canvas_rgba, seq_frames_dense, step_gops, FrameStep, decode_blocks,
+            mc_reconstruct)
+
+
 @pytest.mark.parametrize("path", CLIPS)
 def test_step_kernel_matches_plain_and_reference(cuda, path):
+    """K1 against its plain version and the reference over the whole clip;
+    then the whole-clip entries: RGBA equal to K2's plain version of those
+    canvases, the checksums to the reference's, K1 once per frame and K2
+    once per RGBA call, nothing else."""
     data = open(os.path.join(ROOT, path), "rb").read()
     g, args = tdl.upload(tdl.demux_host(data), cuda)
+    f = args[5].shape[0]
     before = step_frames.launches
     got = step_frames(*args, g.chh, g.cw, g.gly, g.guw)
-    assert step_frames.launches - before == args[5].shape[0]
+    assert step_frames.launches - before == f
     assert torch.equal(got, step_frames_plain(*args, g.chh, g.cw, g.gly, g.guw))
     _, ry, ru, rv, _ = runtime.ref_decode(data)
     for p, r in zip(tdl.slice_yuv(g, got), (ry, ru, rv)):
         assert np.array_equal(p.cpu().numpy(), r)
+    before = [fn.launches for fn in _decode_counters()]
+    rgba = tdl.decode_video_rgba(data, device="cuda")
+    sums = tdl.decode_video_checksums(data, device="cuda")
+    assert [fn.launches - b for fn, b in zip(_decode_counters(), before)] \
+        == [2 * f, 1, 0, 0, 0, 0, 0]
+    want = canvas_rgba_plain(got, g.height, g.width, g.ly0, g.lcw)
+    assert torch.equal(rgba.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(sums.cpu(), tdl.plane_checksums(*map(torch.from_numpy, (ry, ru, rv))))
 
 
 @pytest.mark.parametrize("w,h", [(1920, 1080), (136, 90), (134, 90), (140, 89),
@@ -151,6 +179,8 @@ def test_mc_kernel_matches_plain_into_a_canvas_view(cuda, intra):
 
 @pytest.mark.parametrize("path", CLIPS)
 def test_decoder_matches_reference(cuda, path):
+    """advance_frame to the end, the frame step once per frame; then reset
+    and decode_all, the whole-clip path, K1 once per frame."""
     data = open(os.path.join(ROOT, path), "rb").read()
     n, ry, ru, rv, _ = runtime.ref_decode(data)
     before = (FrameStep.launches, decode_blocks.launches, mc_reconstruct.launches)
@@ -161,8 +191,13 @@ def test_decoder_matches_reference(cuda, path):
     assert len(got) == n
     assert (FrameStep.launches - before[0], decode_blocks.launches - before[1],
             mc_reconstruct.launches - before[2]) == (n, 0, 0)
-    for i, f in enumerate(got):
-        for p, r in zip((f.plane_y, f.plane_u, f.plane_v), (ry[i], ru[i], rv[i])):
+    dec.reset()
+    before = (step_frames.launches, FrameStep.launches)
+    again = dec.decode_all()
+    assert len(again) == n
+    assert (step_frames.launches - before[0], FrameStep.launches - before[1]) == (n, 0)
+    for i, f in enumerate(got + again):
+        for p, r in zip((f.plane_y, f.plane_u, f.plane_v), (ry[i % n], ru[i % n], rv[i % n])):
             assert np.array_equal(p, r)
 
 
@@ -234,6 +269,54 @@ def test_chunked_dense_route_launches_k3_per_frame(cuda, monkeypatch):
     assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 8, 0]
     for p, r in zip(got, runtime.ref_decode(data)[1:4]):
         assert np.array_equal(p.cpu().numpy(), r)
+
+
+def _peak_bytes(fn) -> int:
+    """torch.cuda.max_memory_allocated over one call of fn, less what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _drain(chunks) -> None:
+    """Iterate `chunks`, dropping each before the next is made."""
+    for chunk in chunks:
+        del chunk
+
+
+def test_dense_route_holds_one_chunk_at_a_time(cuda):
+    """An 8K UHD stream of 24 frames (a keyframe every 8) and its packets
+    twice, 48 frames, past a chunk's 24: the dense route in two chunks, K3
+    once per frame, each half equal to the 24-frame decode. The 48-frame
+    decode peaks above the 24-frame one by no more than its 48 canvases and
+    the second chunk's uploaded tensors (both chunks' coefficients alive at
+    once would add 2.5 GB); the chunked decode of the 48 frames no higher
+    than 1.25 times a whole 24-frame decode."""
+    w, h = 7680, 4320
+    uhd = synth.random_stream(w, h, 24, seed=3, keyframes=8)
+    info, packets = split_packets(uhd)
+    uhd2 = synth.container(w, h, info["qtables"], packets * 2)
+    route = tdl.choose_route(uhd2)
+    g = route.g
+    assert route.kind == "dense"
+    assert [tdl._frame_meta(c[4], g.nb)[0].size for c in route.host] == [24, 24]
+    second = tdl.upload_route(route, cuda)[1]
+    extra = 48 * g.chh * g.cw + sum(t.numel() * t.element_size() for t in second)
+    del route, second
+    peak24 = _peak_bytes(lambda: tdl.decode_video_yuv(uhd, device="cuda"))
+    out, before = [], seq_frames_dense.launches
+    peak48 = _peak_bytes(lambda: out.append(tdl.decode_video_yuv(uhd2, device="cuda")))
+    assert seq_frames_dense.launches - before == 48
+    assert peak48 - peak24 <= extra + (64 << 20)
+    for p, q in zip(out.pop(), tdl.decode_video_yuv(uhd, device="cuda")):
+        assert torch.equal(p[:24], q) and torch.equal(p[24:], q)
+    chunked = _peak_bytes(lambda: _drain(tdl.decode_video_rgb_chunks(uhd2, 24, device="cuda")))
+    whole = _peak_bytes(lambda: tdl.decode_video_rgb(uhd, device="cuda"))
+    assert chunked < 1.25 * whole
 
 
 def test_staging_events_record_on_the_copy_device(cuda):
@@ -570,6 +653,29 @@ def test_encoder_on_the_card_equals_the_cpu(cuda):
     assert outs["cuda"] == outs["cpu"] == encode_video(y, u, v, 30, 3, 4, device="cuda")
 
 
+def _corpus_source(w, h, f, kind):
+    """A committed corpus's source frames as (Y, U, V) uint8 stacks."""
+    if kind == "pan":
+        return synth.synth_pan_clip(f, w, h)
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        frames = list(pool.map(lambda t: synth.synth_yuv_frame(t, w, h), range(f)))
+    return tuple(np.stack([p[i] for p in frames]) for i in range(3))
+
+
+@pytest.mark.parametrize("path", list(CORPORA))
+def test_encode_video_remakes_the_committed_corpus(cuda, path):
+    """The corpus's source rebuilt with pfv_torch.synth and encoded whole on
+    the card: the committed bytes, K6 and the in-loop frame step once per
+    frame, K8 once per P-frame, nothing else."""
+    w, h, f, kind = CORPORA[path]
+    planes = _corpus_source(w, h, f, kind)
+    before = [fn.launches for fn in _encode_counters()]
+    got = encode_video(*planes, 30, 2, 60, device="cuda")
+    assert [fn.launches - b for fn, b in zip(_encode_counters(), before)] \
+        == [f, f, f - len(range(0, f, 60)), 0, 0, 0, 0, 0]
+    assert got == open(os.path.join(ROOT, path), "rb").read()
+
+
 def test_fdct_kernel_raises_on_mixed_devices(cuda):
     blocks = torch.zeros((4, 16, 16), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
@@ -599,9 +705,7 @@ def test_k3_matches_plain_and_reference(cuda, source):
 
 def test_k4_matches_plain_over_gops(cuda):
     data = synth.random_stream(4112, 64, 7, seed=32, keyframes=3)
-    route = tdl.choose_route(data)
-    assert (route.kind, route.gops) == ("gops", (3, 3))
-    g, f, per_step, qmul = tdl.upload_gops(route.host, 3, 3, cuda)
+    g, f, per_step, qmul = tdl.upload_gops(tdl.demux_host_packed(data), 3, 3, cuda)
     assert f == 7 and per_step[4][2].tolist() == [1, 2, 2]
     prev = torch.randint(0, 256, (3, g.chh, g.cw), dtype=torch.uint8, device=cuda)
     out = torch.empty((3, 3, g.chh, g.cw), dtype=torch.uint8, device=cuda)
@@ -626,16 +730,25 @@ def test_k4_matches_plain_over_gops(cuda):
 
 
 def test_dense_routes_launch_k3_and_k4_only(cuda):
+    """Wide streams with one keyframe and with one every 4 frames: the
+    dense route, K3 once per frame. K4 runs behind decode_packed_gops, one
+    launch per step of its GOPs (2 GOPs of 4 frames here)."""
     counters = (step_frames, decode_blocks, mc_reconstruct, FrameStep, seq_frames_dense,
                 step_gops)
-    for key, kind, k3, k4 in ((1 << 30, "dense", 6, 0), (4, "gops", 0, 4)):
+    for key in (1 << 30, 4):
         data = synth.random_stream(4112, 64, 6, seed=33, keyframes=key)
-        assert tdl.choose_route(data).kind == kind
+        assert tdl.choose_route(data).kind == "dense"
         before = [fn.launches for fn in counters]
         got = tdl.decode_video_yuv(data, device="cuda")
-        assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 0, 0, k3, k4]
-        for p, r in zip(got, runtime.ref_decode(data)[1:4]):
+        assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 0, 0, 6, 0]
+        ref = runtime.ref_decode(data)[1:4]
+        for p, r in zip(got, ref):
             assert np.array_equal(p.cpu().numpy(), r)
+    before = [fn.launches for fn in counters]
+    got = tdl.decode_packed_gops(tdl.demux_host_packed(data), 2, 4, "yuv", device="cuda")
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 0, 0, 0, 4]
+    for p, r in zip(got, ref):
+        assert np.array_equal(p.cpu().numpy(), r)
 
 
 def _random_vectors(maps, seed):
@@ -667,8 +780,9 @@ def test_frame_steps_exact_at_the_edges(cuda, name):
         wild = (*args[:2], *_random_vectors(args[2:5], 5), *args[5:])
         assert torch.equal(step_frames(*wild, *dims), step_frames_plain(*wild, *dims))
     else:
-        assert route.kind == "gops"
-        g, (coeffs, mvx, mvy, hc, ftype, qmul) = tdl.upload_packed(route.host, device=cuda)
+        assert route.kind == "dense"
+        host = tdl.demux_host_packed(data)
+        g, (coeffs, mvx, mvy, hc, ftype, qmul) = tdl.upload_packed(host, device=cuda)
         maps = tdl.block_maps(g, mvx, mvy, hc)
         dims = (g.chh, g.cw, g.gly, g.guw)
         got = seq_frames_dense(coeffs, *maps, ftype, qmul, *dims)
@@ -676,12 +790,12 @@ def test_frame_steps_exact_at_the_edges(cuda, name):
         outs.append(got)
         wild = (coeffs, *_random_vectors(maps, 6), ftype, qmul, *dims)
         assert torch.equal(seq_frames_dense(*wild), seq_frames_dense_plain(*wild))
-        _, f, per_step, qmul = tdl.upload_gops(route.host, *route.gops, cuda)
+        gops = (-(-synth.EDGE_STREAMS[name][2] // 4), 4)  # a keyframe every 4 frames
+        _, f, per_step, qmul = tdl.upload_gops(host, *gops, cuda)
         gop = step_gops(*per_step, qmul, *dims)
         assert torch.equal(gop, step_gops_plain(*per_step, qmul, *dims))
         outs.append(gop.view(-1, g.chh, g.cw)[:f])
-        prev = torch.randint(0, 256, (route.gops[0], g.chh, g.cw), dtype=torch.uint8,
-                             device=cuda)
+        prev = torch.randint(0, 256, (gops[0], g.chh, g.cw), dtype=torch.uint8, device=cuda)
         wild = (per_step[0], *_random_vectors(per_step[1:4], 7), per_step[4], qmul, *dims)
         assert torch.equal(step_gops(*wild, prev=prev), step_gops_plain(*wild, prev=prev))
     for canv in outs:
@@ -711,7 +825,7 @@ def test_loader_on_the_card_equals_the_whole_clip_decode(cuda, prefetch):
     got = list(VideoDataLoader(datas, prefetch=prefetch, device="cuda"))
     torch.cuda.synchronize()
     frames = sum(runtime.count_frames(d) for d in datas[:-1])
-    assert step_frames.launches - before[0] == frames  # the last clip is K3's or K4's
+    assert step_frames.launches - before[0] == frames  # the last clip is K3's
     assert canvas_rgba.launches - before[1] == len(datas)
     for g, d in zip(got, datas):
         assert g.device.type == "cuda"
@@ -770,3 +884,35 @@ def test_kernels_launch_on_their_tensors_device(cuda):
     got = tdl.decode_video_rgb(data, device="cuda:1")
     assert got.device == torch.device("cuda", 1)
     assert torch.equal(got.cpu(), tdl.decode_video_rgb(data, device="cuda:0").cpu())
+
+
+def _ref_rgb(data: bytes) -> torch.Tensor:
+    """The scalar decoder's frames as (F, H, W, 3) u8 RGB, chroma doubled by
+    nearest neighbour."""
+    y, u, v = (torch.from_numpy(p) for p in runtime.ref_decode(data)[1:4])
+    h, w = y.shape[1:]
+    return yuv_to_rgb(y, double_plane(u)[:, :h, :w], double_plane(v)[:, :h, :w])
+
+
+def test_the_tool_on_the_card(cuda, tmp_path, capsys):
+    """The command-line tool in-process on its default device: info, verify
+    and bench --runs 3 of the 512x384 corpus; encode --synth 8, then decode
+    to .npy, held to the scalar decoder."""
+    from pfv_torch.cli import main
+
+    corpus = os.path.join(ROOT, CLIPS[0])
+    n = runtime.count_frames(open(corpus, "rb").read())
+    pfv, npy = str(tmp_path / "synth.pfv"), str(tmp_path / "frames.npy")
+    counters = (step_frames, canvas_rgba, FrameEncode, FrameStep, MotionSearch,
+                seq_frames_dense)
+    before = [fn.launches for fn in counters]
+    for argv in (["info", corpus], ["verify", corpus], ["bench", corpus, "--runs", "3"],
+                 ["encode", pfv, "--synth", "8"], ["decode", pfv, "--output", npy]):
+        main(argv)
+    text = capsys.readouterr().out
+    # K1: verify's decode and bench's three of the corpus, then the 8 frames
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [4 * n + 8, 4, 8, 8, 7, 0]
+    assert "512x384 @ 30 fps, 4 q-tables" in text and "3 I-frames, 158 P-frames" in text
+    assert f"OK: {n} frames" in text and text.count("RUN ") == 3
+    with open(pfv, "rb") as f:
+        assert torch.equal(torch.from_numpy(np.load(npy)), _ref_rgb(f.read()))

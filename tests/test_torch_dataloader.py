@@ -13,9 +13,9 @@ take: the 128x96 clip with its I-packet re-encoded on q-table indices
 4112x32 stream built from runtime payloads without its I-packet. The JAX
 package takes them through its per-block XLA paths.
 
-Streams wider than K1 takes (2*scp > 1024): 4112x32 with one keyframe
-(route "dense", K3) and with one every 3 frames (route "gops", K4), against
-ref_decode and the JAX package; streams past the dense route's positions
+Streams wider than K1 takes (2*scp > 1024): 4112x32 with one keyframe and
+with one every 3 frames (route "dense", K3), against ref_decode and the JAX
+package; streams past the dense route's positions
 cap (lowered here) cut into 2-4 chunks: inside a GOP, at a keyframe, at a
 drop frame, with one keyframe, with a leading P-frame, all on q-table
 indices per frame and plane."""
@@ -248,18 +248,18 @@ def test_frames_path_matches_units_path(clips, name):
 
 
 WIDE = {
-    # name: (keyframe interval, route, (G, L))
-    "4112x32_one_key": (1 << 30, "dense", None),
-    "4112x32_gop3": (3, "gops", (3, 3)),
+    # name: (keyframe interval, route)
+    "4112x32_one_key": (1 << 30, "dense"),
+    "4112x32_gop3": (3, "dense"),
 }
 
 
 @pytest.mark.parametrize("name", list(WIDE))
 def test_wide_streams_take_the_dense_routes(name):
-    key, kind, gops = WIDE[name]
+    key, kind = WIDE[name]
     data = synth.random_stream(4112, 32, 7, seed=21, keyframes=key)
     route = tdl.choose_route(data)
-    assert (route.kind, route.gate, route.gops) == (kind, None, gops)
+    assert (route.kind, route.gate, len(route.host)) == (kind, None, 1)
     assert tdl.failed_gate(route.g) == "2*scp <= 1024"
     with pytest.raises(ValueError, match="gate '2\\*scp <= 1024'"):
         tdl.demux_host(data)
@@ -305,7 +305,7 @@ def test_dense_positions_limit_is_a_named_gate(monkeypatch):
     assert np.array_equal(np.concatenate([m[1] for m in metas]), want[5])
     huge = synth.container(32768, 32768, info["qtables"], [])
     route = tdl.choose_route(huge)
-    assert (route.kind, route.gate, route.host) == ("frames", "row_span < 2^24", None)
+    assert (route.kind, route.gate, route.host) == ("frames", "row_span < 2^24", huge)
 
 
 def _with_extra_packets(data: bytes, at: int) -> bytes:

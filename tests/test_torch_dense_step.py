@@ -193,16 +193,6 @@ def test_k4_rejects_what_the_kernel_cannot_take(clip):
     assert seq_frames_dense(*args, prev=out[0], out=out[1:]).data_ptr() == out[1].data_ptr()
 
 
-def test_gop_shape_matches_jax_cases():
-    ftype = np.array([1, 2, 2, 1, 2, 2, 1, 2], np.uint8)
-    cases = [(ftype, 1000), (np.array([1, 2, 2, 1], np.uint8), 1000),
-             (np.array([1, 2, 1, 2, 2], np.uint8), 1000),
-             (np.array([1, 2, 2], np.uint8), 1000), (ftype, 100000)]
-    got = [tdl.gop_shape(*c) for c in cases]
-    assert got == [(3, 3), (2, 3), None, None, None]
-    assert got == [jdl._gop_shape(*c) for c in cases]
-
-
 def _jax_gops(data, want):
     env = {"PFV_STEP": "1", "PFV_SEQ": "0", "PFV_LADDER": "plain"}
     with pytest.MonkeyPatch.context() as mp:

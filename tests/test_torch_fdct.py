@@ -17,13 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from pfv_torch import device as tdevice
 from pfv_torch import synth as tsynth
 from pfv_torch.frame import canvas_layout, canvas_planes, geometry
 from pfv_torch.kernels import fdct as k6
 from pfv_torch.ops.blocks import block_origins
 from pfv_torch.ops import color as tcolor
 from pfv_torch.ops import dct as tdct
-from pfv_torch.ops import iframe as tiframe
 from pfv_torch.ops import pframe as tpframe
 from pfv_torch.ops import quant as tquant
 from pfv_tpu.ops import color as jcolor
@@ -122,7 +122,7 @@ def test_k6_plain_intra_matches_pallas_and_jax(n):
     assert np.array_equal(got.numpy(), np.asarray(
         jax_encode_blocks(jnp.asarray(blocks), jnp.asarray(q))))
     # the wrapper takes the plain version for a CPU tensor, as does _best
-    for fn in (k6.fdct_blocks, tiframe.encode_blocks_best):
+    for fn in (k6.fdct_blocks, tdevice.encode_blocks_best):
         assert torch.equal(fn(torch.from_numpy(blocks), torch.from_numpy(q)), got)
 
 

@@ -4,7 +4,7 @@ decode (pfv_tpu.device.iframe_decode_plane / pframe_decode_plane, run with
 PFV_PALLAS=1 so that the iDCT goes through the Pallas kernel in interpret
 mode), against K5's and K7's plain versions plane by plane with vectors
 that leave the planes, and in its one-plane (encoder) form against
-ops.pframe.decode_delta_blocks; then its wrapper's refusals and the
+device.decode_delta_blocks; then its wrapper's refusals and the
 staging buffer the streaming decoder feeds it from. Inputs come from numpy
 seeds; every comparison is exact."""
 
@@ -16,14 +16,13 @@ import torch
 
 from pfv_torch import runtime as truntime
 from pfv_torch.dec import FrameDecoder
-from pfv_torch.device import plane_step
+from pfv_torch.device import decode_delta_blocks, plane_step
 from pfv_torch.frame import canvas_layout, canvas_planes, geometry
 from pfv_torch.kernels.frame_step import (FrameStep, PlaneAt, frame_step_plain,
                                           multipliers, plane_layout)
 from pfv_torch.kernels.idct import decode_blocks_plain
 from pfv_torch.kernels.mc import mc_reconstruct_plain
 from pfv_torch.ops import iframe as tiframe
-from pfv_torch.ops import pframe as tpframe
 from pfv_torch.ops.blocks import block_origins, blocks_to_plane
 from pfv_torch.ops.quant import dequantize
 from pfv_tpu import device as jdevice
@@ -151,8 +150,8 @@ def test_one_plane_form_matches_decode_delta_blocks(w, h, intra):
         want = blocks_to_plane(tiframe.decode_blocks(coeffs[:n].view(n, 4, 64), q), ph, pw)
     else:
         by, bx = (torch.from_numpy(a) for a in block_origins(ph, pw))
-        want = tpframe.decode_delta_blocks(coeffs[:n].view(n, 4, 64), q, ref, by, bx,
-                                           mvy, mvx, hc)
+        want = decode_delta_blocks(coeffs[:n].view(n, 4, 64), q, ref, by, bx,
+                                   mvy, mvx, hc)
     assert torch.equal(got, want)
 
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from pfv_torch import device as tdevice
 from pfv_torch.kernels import idct as k5
 from pfv_torch.ops import blocks as tblocks
 from pfv_torch.ops import iframe as tiframe
@@ -41,7 +42,7 @@ def test_k5_plain_matches_pallas_and_jax(n):
         jax_decode_blocks(jnp.asarray(coeffs), jnp.asarray(q))))
     # the wrapper takes the plain version for a CPU tensor, as does _best
     assert torch.equal(k5.decode_blocks(torch.from_numpy(coeffs), torch.from_numpy(q)), got)
-    assert torch.equal(tiframe.decode_blocks_best(torch.from_numpy(coeffs),
+    assert torch.equal(tdevice.decode_blocks_best(torch.from_numpy(coeffs),
                                                   torch.from_numpy(q)), got)
 
 

@@ -7,7 +7,7 @@ All comparisons are exact (tolerance 0).
 
 Streams come from pfv_torch.synth (runtime payloads, no encoder compile):
 64x48, 128x48 with a keyframe every 2 frames, the 4112x16 edge stream (the
-GOP route), and 64x48 without its I-packet (K1 from the starting canvas);
+dense route), and 64x48 without its I-packet (K1 from the starting canvas);
 one with a drop frame (an I-packet without payload) and an unknown packet
 mid-stream; 4112-wide streams past the dense route's positions cap
 (lowered here), which the loader and the chunked decode take in chunks."""
@@ -57,7 +57,7 @@ def streams():
     }
 
 
-ROUTES = {"64x48": "units", "128x48_gop2": "units", "4112x16": "gops",
+ROUTES = {"64x48": "units", "128x48_gop2": "units", "4112x16": "dense",
           "64x48_first_p": "units", "64x48_drop": "units"}
 
 
@@ -67,6 +67,19 @@ def test_loader_equals_reference_and_whole_clip_decode(streams, name):
     assert tdl.choose_route(data).kind == ROUTES[name]
     (got,) = list(pfv_torch.VideoDataLoader([data], device="cpu"))
     assert got.dtype == torch.uint8 and got.device.type == "cpu"
+    assert torch.equal(got, ref_rgb(data))
+    assert torch.equal(got, pfv_torch.decode_video_rgb(data, device="cpu"))
+
+
+def test_loader_takes_a_stream_decoded_frame_by_frame(streams, monkeypatch):
+    """A stream whose geometry fails the dense gate (forced here) decodes
+    frame by frame in the consumer, from the bytes the worker's upload
+    hands on."""
+    data = streams["4112x16"]
+    monkeypatch.setattr(tdl, "dense_gate", lambda g: "forced")
+    route = tdl.choose_route(data)
+    assert (route.kind, route.gate, route.host) == ("frames", "forced", data)
+    (got,) = list(pfv_torch.VideoDataLoader([data], device="cpu"))
     assert torch.equal(got, ref_rgb(data))
     assert torch.equal(got, pfv_torch.decode_video_rgb(data, device="cpu"))
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from pfv_torch import device as tdevice
 from pfv_torch.kernels import mc as k7
 from pfv_torch.ops import motion as tmotion
 from pfv_torch.ops import pframe as tpframe
@@ -91,7 +92,7 @@ def test_decode_delta_blocks_matches_jax():
     coeffs = coeffs.astype(np.int16)
     q = rng.integers(1, 40, size=64).astype(np.int32)
     t = torch.from_numpy
-    got = tpframe.decode_delta_blocks(t(coeffs), t(q), t(ref), t(by), t(bx),
+    got = tdevice.decode_delta_blocks(t(coeffs), t(q), t(ref), t(by), t(bx),
                                       t(mvy), t(mvx), t(hc))
     want = decode_delta_blocks(
         jnp.asarray(coeffs), jnp.asarray(q), jnp.asarray(ref), jnp.asarray(by),

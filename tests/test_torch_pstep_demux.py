@@ -9,7 +9,7 @@ The streams: 4608x256 frames from the benchmark's stream writer at its 8K
 decode traffic's statistics, I- and P-frames, cut into three chunks (the
 second opening with a P-frame and holding an I-frame); a 4112x32 random
 stream with a drop frame and an unknown packet at a cut; the committed
-corpora through the one-chunk form and the GOP route; the densest units the
+corpora through the one-chunk form and the dense route; the densest units the
 format encodes; each at 1, 2 and 0 (one per hardware thread) workers. Then:
 random motion vectors against the per-call entry's bounds; a truncated
 payload, a motion vector out of bounds and a truncated file, which raise as
@@ -134,12 +134,14 @@ def test_each_chunk_equals_both_oracles(streams, name, num_threads):
 
 @pytest.mark.parametrize("num_threads", [1, 2, 0])
 def test_the_gop_route_demuxes_the_corpus_in_one_chunk(streams, monkeypatch, num_threads):
+    """The uniform-GOP corpus (a keyframe every 60 frames), forced off K1:
+    the dense route, its 161 frames in one chunk."""
     data = streams["512x384"]
     monkeypatch.setattr(tdl, "failed_gate", lambda g: "forced dense")
     route = tdl.choose_route(data, num_threads)
-    assert (route.kind, route.gops) == ("gops", (3, 60))
+    assert route.kind == "dense" and not route.leading_p
     [(info, deltas, vals, meta)] = per_call(data, 0, num_threads)
-    assert _equal(route.host, (info, _geometry(data), deltas, vals, meta))
+    assert _equal(route.host, [(info, _geometry(data), deltas, vals, meta)])
 
 
 def test_the_dense_route_takes_the_chunks_of_one_call(streams, monkeypatch):
