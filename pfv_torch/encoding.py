@@ -11,8 +11,9 @@ buffer. `torch.nonzero` compacts it (the JAX package needs a counting pass
 and a guessed cap for this: XLA has no data-dependent shapes) in runs of
 whole frames, each of fewer than `COMPACT_LIMIT` elements, one run where the
 clip fits; one copy brings the nonzeros and the block headers to the host,
-and the shared C++ runtime entropy-codes each frame from its nonzeros. The
-bytes equal the streaming Encoder's and the JAX package's.
+and the C++ runtime entropy-codes every frame from its nonzeros in one call,
+on a pool of workers kept between calls. The bytes equal the streaming
+Encoder's and the JAX package's.
 `encode_video_gops` gives each of a list of devices a run of whole GOPs and
 muxes once.
 """
@@ -120,22 +121,14 @@ def _compact(live, mvx, mvy, hc):
 
 def _mux(w: int, h: int, framerate: int, qt_host, nb: int, is_key, idx, val, counts,
          mvx, mvy, hc) -> bytes:
-    """The host mux: the container's header, each frame's payload
-    entropy-coded from its nonzeros (`_compact`'s arrays, on the host),
-    the EOF packet."""
-    out = [container_header(w, h, framerate, qt_host)]
-    ends = np.cumsum(counts)
-    for t in range(len(is_key)):
-        lo, hi = ends[t] - counts[t], ends[t]
-        if is_key[t]:
-            payload = runtime.encode_iframe_payload_sparse(
-                idx[lo:hi], val[lo:hi], nb, INTRA_Q)
-        else:
-            payload = runtime.encode_pframe_payload_sparse(
-                idx[lo:hi], val[lo:hi], mvx[t], mvy[t], hc[t], INTER_Q)
-        out += [struct.pack("<BI", 1 if is_key[t] else 2, len(payload)), payload]
-    out.append(struct.pack("<BI", 0, 0))
-    return b"".join(out)
+    """The host mux: the container's header, every frame's packet
+    entropy-coded from its nonzeros (`_compact`'s arrays, on the host) in
+    one call of the native coder's worker pool, the EOF packet."""
+    with span("encode.entropy"):
+        packets = runtime.encode_packets_sparse(is_key, idx, val, counts, mvx, mvy, hc, nb,
+                                                INTRA_Q, INTER_Q)
+    return b"".join([container_header(w, h, framerate, qt_host), packets,
+                     struct.pack("<BI", 0, 0)])
 
 
 def encode_video(y: np.ndarray, u: np.ndarray, v: np.ndarray, framerate: int,

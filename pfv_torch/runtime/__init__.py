@@ -6,14 +6,17 @@ kept byte for byte equal to the JAX package's copy. The port's own source,
 `native/pfv_tile_demux.cpp`, includes that file and adds persistent
 contexts for the tile demux (K1's route) and the pstep demux (the dense
 route, and K4's input): workers that sleep between calls and unit buffers kept from
-one call to the next, sized by what the streams really produced. This
-module binds the part of the library the port uses through ctypes with
-numpy-array views.
+one call to the next, sized by what the streams really produced. It
+includes `native/pfv_mux.cpp`, the encoder's mux context of the same
+make: a clip's frames entropy-coded by the copy's payload coders on its
+workers, each into a payload buffer kept between calls. This module binds
+the part of the library the port uses through ctypes with numpy-array
+views.
 
-Both demuxes hold memory after a call: per context (one per concurrent
-caller, kind and `num_threads`), the high-water mark of the calls it
-served. `release_demux_memory()` frees the idle contexts' workers and
-buffers.
+The demuxes and the mux hold memory after a call: per context (one per
+concurrent caller, kind and `num_threads`), the high-water mark of the
+calls it served. `release_demux_memory()` frees the idle contexts'
+workers and buffers.
 
 The library is compiled with g++ at first use into `pfv_torch/build/`
 (which git ignores), under a name keyed by the sources, the flags and the
@@ -38,8 +41,9 @@ import numpy as np
 from pfv_torch.utils.profiling import count, recording, span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC_PATH = os.path.join(_HERE, "native", "pfv_tile_demux.cpp")  # includes the next
-_SOURCES = (_SRC_PATH, os.path.join(_HERE, "native", "pfv_bitstream.cpp"))
+_SRC_PATH = os.path.join(_HERE, "native", "pfv_tile_demux.cpp")  # includes the others
+_SOURCES = (_SRC_PATH, *(os.path.join(_HERE, "native", name)
+                         for name in ("pfv_bitstream.cpp", "pfv_mux.cpp")))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
 # -O2 measures equal-or-faster than -O3 on the branchy bit-twiddling loops
 CXX_FLAGS = ["-O2", "-march=native", "-fPIC", "-std=c++17", "-shared", "-pthread"]
@@ -145,6 +149,16 @@ def get_lib() -> ctypes.CDLL:
             ctypes.POINTER(i64)]
         lib.pfv_pstep_demux_splice.restype = i64
         lib.pfv_pstep_demux_splice.argtypes = [vp, p_u64, p_u64, p_i64, i64]
+        lib.pfv_mux_new.restype = vp
+        lib.pfv_mux_new.argtypes = [ctypes.c_int32]
+        lib.pfv_mux_free.restype = None
+        lib.pfv_mux_free.argtypes = [vp]
+        lib.pfv_mux_encode.restype = i64
+        lib.pfv_mux_encode.argtypes = [
+            vp, p_i32, p_i16, i64, p_i64, p_i8, p_i8, p_u8, p_u8, i64, i64, p_u8, p_u8,
+            ctypes.POINTER(ctypes.c_double)]
+        lib.pfv_mux_splice.restype = i64
+        lib.pfv_mux_splice.argtypes = [vp, p_u8, i64]
         _lib = lib
         return _lib
 
@@ -219,6 +233,61 @@ def encode_pframe_payload_sparse(idx, val, mvx, mvy, has_coeff, qidx) -> bytes:
                  np.ascontiguousarray(has_coeff, dtype=np.uint8), total_blocks,
                  np.asarray(qidx, dtype=np.uint8),
                  idx.shape[0] * 8 + total_blocks * 48 + 1024)
+
+
+def encode_packets_sparse(is_key, idx, val, counts, mvx, mvy, has_coeff, total_blocks: int,
+                          intra_q, inter_q, num_threads: int = 0) -> np.ndarray:
+    """Every frame of a clip coded from its nonzeros -> the frames' packets
+    (type byte, u32 length, payload; in frame order) as one u8 array of
+    exactly their size. Frame f holds the counts[f] nonzeros (sorted
+    frame-local flat idx, val) after those of the frames before it; a
+    keyframe (is_key[f]) is coded as `encode_iframe_payload_sparse` codes it
+    with q-table indices intra_q, a P-frame as `encode_pframe_payload_sparse`
+    with its rows of mvx, mvy, has_coeff (F, total_blocks) and inter_q:
+    byte for byte their payloads.
+
+    The work runs in a native context kept between calls, in one run of its
+    workers (min(num_threads, F) of them, 0 for one per hardware thread),
+    each frame into a slot that keeps its capacity (`release_demux_memory`
+    frees them). While a profiler session records, counts
+    `encode.payload_bytes`, the payloads' bytes, `encode.mux_frames`, the
+    frames coded, and `encode.mux_worker_s`, the workers' summed seconds on
+    them."""
+    is_key = np.ascontiguousarray(is_key, dtype=bool)
+    f = is_key.shape[0]
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    val = np.ascontiguousarray(val, dtype=np.int16)
+    counts = np.ascontiguousarray(counts, dtype=np.int64)
+    mvx, mvy, has_coeff = (np.ascontiguousarray(a, dtype=d) for a, d in (
+        (mvx, np.int8), (mvy, np.int8), (has_coeff, np.uint8)))
+    if (is_key.ndim != 1 or counts.shape != (f,) or val.shape != idx.shape
+            or idx.ndim != 1
+            or any(a.shape != (f, total_blocks) for a in (mvx, mvy, has_coeff))
+            or (counts < 0).any() or counts.sum() > idx.shape[0]):
+        raise ValueError(f"inconsistent clip arrays: is_key {is_key.shape}, idx "
+                         f"{idx.shape}, val {val.shape}, counts {counts.shape}, "
+                         f"headers {mvx.shape} {mvy.shape} {has_coeff.shape}")
+    lib = get_lib()
+    worker_s = ctypes.c_double(0.0)
+    with _mux_contexts.take(lib, num_threads) as ctx:
+        n = lib.pfv_mux_encode(
+            ctx, idx, val, idx.shape[0], counts, mvx.reshape(-1), mvy.reshape(-1),
+            has_coeff.reshape(-1), is_key.view(np.uint8), f, total_blocks,
+            np.asarray(intra_q, dtype=np.uint8), np.asarray(inter_q, dtype=np.uint8),
+            ctypes.byref(worker_s))
+        if n >= 0:
+            out = np.empty(n, dtype=np.uint8)
+            rc = lib.pfv_mux_splice(ctx, out, n)
+            if rc < 0:
+                n = rc
+    if n == -6:
+        raise MemoryError("no memory for the mux")
+    if n < 0:
+        raise ValueError(f"unencodable coefficients (code {n})")
+    count("encode.payload_bytes", n - 5 * f)
+    count("encode.mux_frames", f)
+    count("encode.mux_worker_s", worker_s.value)
+    return out
 
 
 def encode_pframe_payload(coeffs, mvx, mvy, has_coeff, qidx) -> bytes:
@@ -484,11 +553,12 @@ def demux_file_sparse_pstep(data: bytes, chunk_frames: int = 0, num_threads: int
 
 
 class _Contexts:
-    """The idle native demux contexts of one kind ("tile" or "pstep"), by
-    `num_threads`. A call takes the idle one returned last or makes one, so
-    concurrent callers (the loader's worker, a stream batch, the streaming
-    Decoder) each hold their own, and one caller's calls find the buffers
-    it grew."""
+    """The idle native contexts of one kind (the tile demux, the pstep
+    demux, the mux: the prefix of their entries `<kind>_new` and
+    `<kind>_free`), by `num_threads`. A call takes the idle one returned
+    last or makes one, so concurrent callers (the loader's worker, a stream
+    batch, the streaming Decoder, encoders in threads) each hold their own,
+    and one caller's calls find the buffers it grew."""
 
     def __init__(self, kind: str):
         self.kind = kind
@@ -502,9 +572,9 @@ class _Contexts:
                       if self.idle[i][0] == num_threads), None)
             ctx = None if i is None else self.idle.pop(i)[1]
         if ctx is None:
-            ctx = getattr(lib, f"pfv_{self.kind}_demux_new")(num_threads)
+            ctx = getattr(lib, f"{self.kind}_new")(num_threads)
             if not ctx:
-                raise MemoryError(f"no memory for a {self.kind} demux context")
+                raise MemoryError(f"no memory for a {self.kind} context")
         try:
             yield ctx
         finally:
@@ -515,7 +585,7 @@ class _Contexts:
         with self.lock:
             idle, self.idle = self.idle, []
         for _, ctx in idle:
-            getattr(lib, f"pfv_{self.kind}_demux_free")(ctx)
+            getattr(lib, f"{self.kind}_free")(ctx)
 
     def after_fork(self) -> None:
         # the lock may have been held by a thread the child does not have;
@@ -523,20 +593,21 @@ class _Contexts:
         self.lock = threading.Lock()
 
 
-_contexts = _Contexts("tile")
-_pstep_contexts = _Contexts("pstep")
-os.register_at_fork(after_in_child=_contexts.after_fork)
-os.register_at_fork(after_in_child=_pstep_contexts.after_fork)
+_contexts = _Contexts("pfv_tile_demux")
+_pstep_contexts = _Contexts("pfv_pstep_demux")
+_mux_contexts = _Contexts("pfv_mux")
+for _pool in (_contexts, _pstep_contexts, _mux_contexts):
+    os.register_at_fork(after_in_child=_pool.after_fork)
 
 
 def release_demux_memory() -> None:
-    """Free the workers and buffers that the tile and pstep demuxes keep
-    between calls (each idle context holds the high-water mark of the calls
-    it served). A context in use keeps its memory until it is next
-    released. The next call makes a new context."""
+    """Free the workers and buffers that the tile and pstep demuxes and the
+    encoder's mux keep between calls (each idle context holds the
+    high-water mark of the calls it served). A context in use keeps its
+    memory until it is next released. The next call makes a new context."""
     if _lib is not None:
-        _contexts.release(_lib)
-        _pstep_contexts.release(_lib)
+        for pool in (_contexts, _pstep_contexts, _mux_contexts):
+            pool.release(_lib)
 
 
 def demux_file_sparse_tiles(data: bytes, tile_tables, chunk: int = 128,
@@ -632,6 +703,6 @@ def ref_decode(data: bytes, emit: bool = True, max_frames: int = 1 << 30):
 __all__ = ["count_frames", "decode_iframe_payload", "decode_pframe_payload",
            "demux_file_sparse_packed", "demux_file_sparse_pstep", "demux_file_sparse_tiles",
            "encode_iframe_payload", "encode_iframe_payload_sparse",
-           "encode_pframe_payload", "encode_pframe_payload_sparse",
+           "encode_packets_sparse", "encode_pframe_payload", "encode_pframe_payload_sparse",
            "get_lib", "parse_header", "ref_decode", "release_demux_memory",
            "validate_motion"]

@@ -1,6 +1,7 @@
 // The port's own demux contexts: persistent native state that keeps its
 // workers and its output buffers from one call to the next, for the tile
-// demux (K1's route) and the pstep demux (the dense route, and K4's input).
+// demux (K1's route) and the pstep demux (the dense route, and K4's input);
+// pfv_mux.cpp, included at the end, adds the encoder's mux context.
 //
 // pfv_bitstream.cpp stays the JAX package's copy, unchanged; this file
 // includes it and reuses its entropy passes (decode_payload_tiles and its
@@ -123,11 +124,10 @@ struct FrameSlot {
   int16_t mvmax = 0;
 };
 
-// What both contexts share: the workers, and the packets of the call.
-struct Context {
+// What every context holds: its workers, started at first use.
+struct Pooled {
   int nthreads = 1;
   std::unique_ptr<WorkerPool> pool;
-  std::vector<Packet> pkts;
 
   WorkerPool& workers() {
     if (pool && pool->pid() != getpid()) {
@@ -137,6 +137,11 @@ struct Context {
     if (!pool) pool.reset(new WorkerPool(nthreads));
     return *pool;
   }
+};
+
+// What both demux contexts share besides: the packets of the call.
+struct Context : Pooled {
+  std::vector<Packet> pkts;
 
   // The frame packets after header_off, at most max_frames: 0, or -4
   // where a packet runs past the end.
@@ -646,3 +651,5 @@ int64_t pfv_pstep_demux_splice(void* handle, const uint64_t* deltas_out,
 }
 
 }  // extern "C"
+
+#include "pfv_mux.cpp"
